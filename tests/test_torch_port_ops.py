@@ -1,0 +1,288 @@
+"""The port's ops (``rvos_tpu_torch.ops``) against the JAX package's.
+
+Inputs are made with numpy from a seed and fed to both sides; the port
+runs on the CPU, where each kernel wrapper runs its plain PyTorch
+version.  Where the JAX function reaches a Pallas kernel it runs in
+interpret mode.  Parity mode (float32) throughout.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rvos_tpu.ops import kmeans as jk
+from rvos_tpu.ops import matching as jm
+from rvos_tpu.ops import proxies as jp
+from rvos_tpu.ops.entropy import shannon_entropy as j_entropy
+from rvos_tpu.ops.pallas_local import local_matching_pallas
+from rvos_tpu.ops.pallas_matching import global_matching_pallas_segmented_mapped
+from rvos_tpu.ops.resize import resize_hw as j_resize_hw
+
+from rvos_tpu_torch import ops as tops
+from rvos_tpu_torch.ops import matching as tm
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+@pytest.mark.parametrize("mode", ["bilinear", "bicubic", "nearest"])
+@pytest.mark.parametrize("hw,out", [((9, 13), (17, 25)), ((33, 33), (9, 9)),
+                                    ((61, 107), (31, 54)), ((31, 54), (61, 107))])
+def test_resize_matches_resize_hw(mode, hw, out, rng):
+    x = rng.standard_normal(hw + (3,)).astype(np.float32)
+    if mode == "nearest":
+        x = np.round(x * 3)
+    want = np.asarray(j_resize_hw(jnp.asarray(x), out, mode))
+    got = tops.resize_hw(_t(x), out, mode).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+# 20,000 reference rows for an 8,192-row (8-tile) occupancy bank:
+# "equal" — three objects of 6,000 pixels on an empty background channel;
+#   their equal counts tie the largest-remainder tile split, so the
+#   allocation depends on the stable lower-index-first order of the sorts;
+# "dominant" — one object of 15,000 pixels far over its 4 tiles, a
+#   200-pixel object whose one tile is mostly filler rows, and a live
+#   background channel.
+_BANKS = {"equal": ((0, 6000, 6000, 6000), [0, 3, 3, 2]),
+          "dominant": ((1800, 15000, 3000, 200), [1, 4, 2, 1])}
+
+
+def _skewed_bank(rng, kind, c=12):
+    counts, _ = _BANKS[kind]
+    r = 20000
+    emb = rng.standard_normal((r, c)).astype(np.float32)
+    lab = np.zeros((r, len(counts)), np.float32)
+    start = 0
+    for o in (1, 2, 3, 0):
+        lab[start:start + counts[o], o] = 1.0
+        start += counts[o]
+    return emb, lab
+
+
+@pytest.mark.parametrize("kind", sorted(_BANKS))
+def test_occupancy_compaction_selects_identical_rows(kind, rng):
+    emb, lab = _skewed_bank(rng, kind)
+    je, jl, jt = jm.compact_reference_bank_occupancy(
+        jnp.asarray(emb), jnp.asarray(lab), 8192, tile=1024)
+    te, tl, tt = tm.compact_reference_bank_occupancy(_t(emb), _t(lab), 8192,
+                                                     tile=1024)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    counts, tiles = _BANKS[kind]
+    assert np.bincount(np.asarray(jt), minlength=4).tolist() == tiles
+    # every object over its quota is subsampled by the hash ranking
+    kept = np.asarray(jl).sum(0)
+    for o, n in enumerate(counts):
+        assert kept[o] == min(n, 1024 * tiles[o])
+
+
+def test_top_idx_breaks_ties_like_lax_top_k(rng):
+    """Many equal scores: the port's stable sort keeps the lower index
+    first among equals, as ``lax.top_k`` does."""
+    score = rng.integers(0, 4, (3, 500)).astype(np.float32)
+    want = np.asarray(jax.lax.top_k(jnp.asarray(score), 300)[1])
+    np.testing.assert_array_equal(tm._top_idx(_t(score), 300).numpy(), want)
+
+
+def test_compact_reference_bank_identical(rng):
+    emb, lab = _skewed_bank(rng, "equal")
+    je, jl = jm.compact_reference_bank(jnp.asarray(emb), jnp.asarray(lab), 8192)
+    te, tl = tm.compact_reference_bank(_t(emb), _t(lab), 8192)
+    np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("kind", sorted(_BANKS))
+def test_global_seg_map_plain_matches_pallas(kind, mixed, rng):
+    """Raw live-channel mins and squashed maps against the Pallas kernel
+    in interpret mode.  Mixed mode: both sides multiply bf16-rounded
+    operands exactly and accumulate in float32, but the Pallas kernel
+    rounds each distance to bf16 before its min (relative error up to
+    2**-8 ≈ 3.9e-3); the port keeps the float32 min.  Hence
+    max |Δ|/max(|d|, 1) ≤ 4e-3 raw and, as d times the squash's slope
+    is at most 0.45, atol 2e-3 squashed."""
+    emb, lab = _skewed_bank(rng, kind)
+    o = lab.shape[1]
+    oe, ol, tobj = jm.compact_reference_bank_occupancy(
+        jnp.asarray(emb), jnp.asarray(lab), 8192, tile=1024)
+    p = oe.shape[0]
+    row_obj = np.repeat(np.asarray(tobj), p // tobj.shape[0])
+    bias = ((1.0 - np.asarray(ol)[np.arange(p), row_obj]) * 5e4
+            ).astype(np.float32)
+    q = rng.standard_normal((50, emb.shape[1])).astype(np.float32)
+    want = np.asarray(global_matching_pallas_segmented_mapped(
+        jnp.asarray(q), oe, jnp.asarray(bias), tobj, n_obj=o,
+        interpret=True, mixed=mixed))
+    got = tops.global_seg_map(_t(q), _t(np.asarray(oe)), _t(bias),
+                              _t(np.asarray(tobj)), n_obj=o, mixed=mixed
+                              ).numpy()
+    live = np.asarray(ol).sum(0) > 0
+    assert live.tolist() == [n > 0 for n in _BANKS[kind][0]]
+    if mixed:
+        rel = np.abs(got[:, live] - want[:, live]) / np.maximum(
+            np.abs(want[:, live]), 1.0)
+        assert rel.max() <= 4e-3, rel.max()
+    else:
+        np.testing.assert_allclose(got[:, live], want[:, live], atol=1e-3)
+    np.testing.assert_allclose(got[:, ~live], 1e5)
+    # squashed through the segmented entry point vs the JAX one
+    dis_bias = rng.standard_normal(o).astype(np.float32) * 0.1
+    want_sq = np.asarray(jm.global_matching_flat_segmented(
+        jnp.asarray(q).reshape(5, 10, -1), oe, ol, jnp.asarray(dis_bias),
+        mixed=mixed, interpret=True, tile_obj=tobj))
+    got_sq = tm.global_matching_flat_segmented(
+        _t(q).reshape(5, 10, -1), _t(np.asarray(oe)), _t(np.asarray(ol)),
+        _t(dis_bias), _t(np.asarray(tobj)), mixed=mixed).numpy()
+    np.testing.assert_allclose(got_sq, want_sq, atol=2e-3 if mixed else 5e-4)
+
+
+def test_global_matching_flat_matches_jax(rng):
+    r, c, o = 700, 10, 3
+    emb = rng.standard_normal((r, c)).astype(np.float32)
+    lab = np.eye(o, dtype=np.float32)[rng.integers(0, o, r)]
+    lab[rng.random(r) < 0.2] = 0.0            # padding rows
+    q = rng.standard_normal((6, 7, c)).astype(np.float32)
+    bias = rng.standard_normal(o).astype(np.float32) * 0.1
+    want = np.asarray(jm.global_matching_flat(
+        jnp.asarray(q), jnp.asarray(emb), jnp.asarray(lab), jnp.asarray(bias)))
+    got = tm.global_matching_flat(_t(q), _t(emb), _t(lab), _t(bias),
+                                  tile_r=256).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+@pytest.mark.parametrize("atrous", [1, 2])
+def test_local_match_plain_matches_pallas(atrous, rng):
+    h, w, c, o = 13, 15, 20, 3
+    radii = (1, 2, 3)
+    x = rng.standard_normal((h, w, c)).astype(np.float32)
+    ys = rng.standard_normal((2, h, w, c)).astype(np.float32)
+    onehot = np.eye(o, dtype=np.float32)[rng.integers(0, o, (h, w))]
+    onehot[rng.random((h, w)) < 0.1] = 0.0    # unlabelled pixels
+    got = tops.local_match(_t(x), _t(ys), _t(onehot), radii, atrous).numpy()
+    assert got.shape == (2, h, w, o, len(radii))
+    for s in range(2):
+        want = np.asarray(local_matching_pallas(
+            jnp.asarray(x), jnp.asarray(ys[s]), jnp.asarray(onehot), radii,
+            atrous, interpret=True))
+        # live distances to 1e-3; penalised ones (≥ 5e4) also differ by
+        # float32 rounding at their magnitude, hence the 1e-6 rtol
+        np.testing.assert_allclose(got[s], want, atol=1e-3, rtol=1e-6)
+
+
+def test_local_matching_bank_stacked_matches_jax(rng):
+    hh, ww, c, o = 17, 21, 16, 3
+    radii = (2, 4)
+    q = rng.standard_normal((hh, ww, c)).astype(np.float32)
+    prev = rng.standard_normal((2, hh, ww, c)).astype(np.float32)
+    onehot = np.eye(o, dtype=np.float32)[rng.integers(0, o, (hh, ww))]
+    bias = rng.standard_normal(o).astype(np.float32) * 0.1
+    want = np.asarray(jm.local_matching_bank_stacked(
+        jnp.asarray(q), jnp.asarray(prev), jnp.asarray(onehot),
+        jnp.asarray(bias), radii))
+    got = tm.local_matching_bank_stacked(_t(q), _t(prev), _t(onehot),
+                                         _t(bias), radii).numpy()
+    assert got.shape == want.shape == (2, hh, ww, o, 2)
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_kmeans_cluster_matching_with_injected_scores(rng):
+    r, c, o, k = 300, 8, 3, 4
+    emb = rng.standard_normal((r, c)).astype(np.float32)
+    lab = np.eye(o, dtype=np.float32)[rng.integers(0, o, r)]
+    lab[:, 2] = 0.0
+    lab[:3, 2] = 1.0                      # fewer pixels than clusters
+    key = jax.random.PRNGKey(5)
+    banks_j = jk.cluster_objects(jnp.asarray(emb), jnp.asarray(lab), key,
+                                 k=k, iters=4)
+    scores = np.stack([np.asarray(jax.random.uniform(kk, (r,), minval=0.5,
+                                                     maxval=1.0))
+                       for kk in jax.random.split(key, o)])
+    banks_t = tops.cluster_objects(_t(emb), _t(lab), _t(scores), k=k, iters=4)
+    np.testing.assert_array_equal(banks_t.cent_valid.numpy(),
+                                  np.asarray(banks_j.cent_valid))
+    np.testing.assert_array_equal(banks_t.mean_valid.numpy(),
+                                  np.asarray(banks_j.mean_valid))
+    cv = np.asarray(banks_j.cent_valid)
+    np.testing.assert_allclose(banks_t.centroids.numpy()[cv],
+                               np.asarray(banks_j.centroids)[cv], atol=1e-4)
+    q = rng.standard_normal((5, 6, c)).astype(np.float32)
+    bias = rng.standard_normal(o).astype(np.float32) * 0.1
+    want = np.asarray(jk.cluster_matching(jnp.asarray(q), banks_j,
+                                          jnp.asarray(bias)))
+    got = tops.cluster_matching(_t(q), banks_t, _t(bias)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_heads_proxies_fg2bg_entropy(rng):
+    s, h, w, c, o = 2, 5, 6, 8, 3
+    ref = rng.standard_normal((s, h, w, c)).astype(np.float32)
+    ref_oh = np.eye(o, dtype=np.float32)[rng.integers(0, o, (s, h, w))]
+    slot_valid = np.array([1.0, 0.0], np.float32)
+    prev = rng.standard_normal((h, w, c)).astype(np.float32)
+    prev_oh = np.eye(o, dtype=np.float32)[rng.integers(0, o, (h, w))]
+    hj = jp.attention_heads(jnp.asarray(ref), jnp.asarray(ref_oh),
+                            jnp.asarray(slot_valid), jnp.asarray(prev),
+                            jnp.asarray(prev_oh), 1e-5)
+    ht = tops.attention_heads(_t(ref), _t(ref_oh), _t(slot_valid), _t(prev),
+                              _t(prev_oh), 1e-5)
+    for a, b in zip(ht, hj):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
+    np.testing.assert_allclose(
+        tops.proxy_reconstructed_embedding(_t(prev_oh), ht.prev_pos).numpy(),
+        np.asarray(jp.proxy_reconstructed_embedding(jnp.asarray(prev_oh),
+                                                    hj.prev_pos)), atol=1e-4)
+    bias = rng.standard_normal(o).astype(np.float32) * 0.1
+    np.testing.assert_allclose(
+        tops.proxy_matching(_t(prev), ht.ref_pos, _t(bias)).numpy(),
+        np.asarray(jm.proxy_matching(jnp.asarray(prev), hj.ref_pos,
+                                     jnp.asarray(bias))), atol=1e-4)
+    dis = rng.uniform(0, 1, (h, w, o, 2)).astype(np.float32)
+    for valid in ([1, 1, 1], [1, 1, 0], [1, 0, 0]):
+        v = np.asarray(valid, np.float32)
+        np.testing.assert_allclose(
+            tops.foreground2background(_t(dis), _t(v)).numpy(),
+            np.asarray(jm.foreground2background(jnp.asarray(dis),
+                                                jnp.asarray(v))), atol=1e-6)
+    probs = rng.dirichlet(np.ones(o), (h, w)).transpose(2, 0, 1)
+    probs = probs.astype(np.float32)
+    mask = np.array([1.0, 1.0, 0.0], np.float32)
+    np.testing.assert_allclose(
+        tops.shannon_entropy(_t(probs), _t(mask)).numpy(),
+        np.asarray(j_entropy(jnp.asarray(probs), jnp.asarray(mask))),
+        atol=1e-5)
+
+
+def test_wrappers_take_plain_path_only_on_cpu(rng):
+    """CPU tensors run the plain version without counting a launch; any
+    other non-CUDA device is refused rather than computed elsewhere."""
+    n1, n2 = tops.global_seg_map.launches, tops.local_match.launches
+    q = torch.zeros((4, 8))
+    r = torch.zeros((128, 8))
+    tops.global_seg_map(q, r, torch.zeros(128), torch.zeros(2, dtype=torch.int32),
+                        n_obj=2)
+    tops.local_match(torch.zeros((3, 4, 8)), torch.zeros((2, 3, 4, 8)),
+                     torch.zeros((3, 4, 2)), (1,))
+    assert (tops.global_seg_map.launches, tops.local_match.launches) == (n1, n2)
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tops.global_seg_map(torch.empty((4, 8), **meta),
+                            torch.empty((128, 8), **meta),
+                            torch.empty(128, **meta),
+                            torch.empty(2, dtype=torch.int32, **meta), n_obj=2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tops.local_match(torch.empty((3, 4, 8), **meta),
+                         torch.empty((2, 3, 4, 8), **meta),
+                         torch.empty((3, 4, 2), **meta), (1,))
+    # operands split across devices are refused before any launch
+    with pytest.raises(ValueError, match="one device expected"):
+        tops.global_seg_map(q, torch.empty((128, 8), **meta), torch.zeros(128),
+                            torch.zeros(2, dtype=torch.int32), n_obj=2)
+    with pytest.raises(ValueError, match="one device expected"):
+        tops.local_match(torch.zeros((3, 4, 8)), torch.empty((2, 3, 4, 8), **meta),
+                         torch.zeros((3, 4, 2)), (1,))
