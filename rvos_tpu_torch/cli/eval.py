@@ -4,10 +4,14 @@ and ``--seed``.
 
     python -m rvos_tpu_torch.cli.eval --synthetic --out /tmp/port_eval
     python -m rvos_tpu_torch.cli.eval --synthetic --device cpu
+    python -m rvos_tpu_torch.cli.eval --synthetic --ckpt_path aoc.pth \
+        --min_matching_pixels 0 --shard_id 1 --shard_num 2
 
-Runs on CUDA unless ``--device cpu``.  The port has no checkpoint
-loader and no DAVIS/YouTube-VOS loaders yet: it evaluates the synthetic
-fixture with random weights made from ``--seed``.
+Runs on CUDA unless ``--device cpu``.  ``--ckpt_path`` loads a reference
+``.pth``; without it the weights are random, made from ``--seed``.
+``--shard_id/--shard_num`` evaluate a round-robin share of the
+sequences.  The DAVIS/YouTube-VOS loaders are not ported yet: the port
+evaluates the synthetic fixture.
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ def build_parser():
     p = argparse.ArgumentParser(description="Eval AOC-Net (PyTorch port, RPA)")
     p.add_argument("--exp_name", type=str, default="")
     p.add_argument("--config", type=str, default="resnet101_aocnet")
+    p.add_argument("--ckpt_path", type=str, default="",
+                   help="reference .pth/.pth.tar checkpoint (random weights "
+                        "from --seed when empty)")
     p.add_argument("--mem_every", type=int, default=-1)
     p.add_argument("--ucr", type=float, default=1.0)
     p.add_argument("--float16", action="store_true",
@@ -40,6 +47,10 @@ def build_parser():
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
+    p.add_argument("--shard_id", type=int, default=0,
+                   help="evaluate sequences i with i %% shard_num == "
+                        "shard_id (all shards share --out)")
+    p.add_argument("--shard_num", type=int, default=1)
     return p
 
 
@@ -67,6 +78,20 @@ def apply_args(cfg, args):
     return cfg
 
 
+class _ShardView:
+    """Round-robin sequence shard of an eval dataset."""
+
+    def __init__(self, ds, shard_id: int, shard_num: int):
+        self.ds = ds
+        self.idx = list(range(shard_id, len(ds), shard_num))
+
+    def __len__(self):
+        return len(self.idx)
+
+    def __getitem__(self, i):
+        return self.ds[self.idx[i]]
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if not args.synthetic:
@@ -79,13 +104,23 @@ def main(argv=None):
     from ..data import SyntheticEval
     from ..engine import Evaluator
     from ..models import AOCNet
-    from ..weights import init_random_
+    from ..weights import init_random_, load_reference_checkpoint
 
     cfg = apply_args(get_config(args.config), args)
     cfg = cfg.replace(MODEL_MAX_OBJ_NUM=4, TEST_BANK_CAPACITY=3)
     dataset = SyntheticEval(size=(129, 129))
     model = init_random_(AOCNet(cfg),
                          torch.Generator().manual_seed(args.seed))
+    if args.ckpt_path:
+        load_reference_checkpoint(args.ckpt_path, model)
+        print(f"Loaded checkpoint {args.ckpt_path}")
+    if args.shard_num > 1:
+        if not 0 <= args.shard_id < args.shard_num:
+            raise SystemExit(f"--shard_id {args.shard_id} out of range "
+                             f"for --shard_num {args.shard_num}")
+        dataset = _ShardView(dataset, args.shard_id, args.shard_num)
+        print(f"Shard {args.shard_id}/{args.shard_num}: "
+              f"{len(dataset)} sequences")
     out_root = args.out or os.path.join(
         cfg.result_dirs()["eval"],
         f"synthetic_{cfg.EXP_NAME}_m_{cfg.MEM_EVERY}_u_{cfg.UNC_RATIO}_torch",

@@ -53,6 +53,17 @@ def tiny_test(**kw) -> Config:
     return Config(**base)
 
 
+# the evaluator's bank layouts as config overrides, by the kernel that
+# their global stream runs: occupancy segments (B.1, the preset),
+# uniform-quota segments (B.2), fg-union compaction and no cap (B.3)
+BANK_LAYOUTS = {
+    "occupancy": {},
+    "uniform": dict(MATCHING_OCCUPANCY_BANK=False),
+    "unsegmented": dict(MATCHING_SEGMENTED_BANK=False),
+    "cap0": dict(MATCHING_MAX_REF_PIXELS=0),
+}
+
+
 PRESETS = {
     "resnet101_aocnet": resnet101_aocnet,
     "resnet101_aocnet_2": resnet101_aocnet_2,

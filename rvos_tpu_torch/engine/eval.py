@@ -10,8 +10,12 @@ Shannon entropy exceeds ``UNC_RATIO`` are stored as label 125 (excluded
 from matching) when the frame joins the bank every ``MEM_EVERY``
 frames.  Mid-video ground truth (``current_label`` at frame > 0) is
 spliced into the prediction (``join_label``).  The bank is a fixed ring
-of ``TEST_BANK_CAPACITY`` slots; its flattened, occupancy-compacted
-form is rebuilt only when the bank or the object set changes.
+of ``TEST_BANK_CAPACITY`` slots; its flattened form, compacted by the
+configured bank layout (``models.precompact_bank``: occupancy or
+uniform-quota segments, fg-union, or every row when
+``MATCHING_MAX_REF_PIXELS`` is 0), is rebuilt only when the bank or the
+object set changes.  The k-means init scores have one draw per row of
+that form.
 
 The k-means init scores of frame ``f`` come from a ``torch.Generator``
 seeded with ``KMEANS_SEED + f`` (the JAX evaluator folds the frame index

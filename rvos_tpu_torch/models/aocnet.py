@@ -22,7 +22,8 @@ from ..ops import (attention_heads, cluster_matching, cluster_objects,
                    foreground2background, local_matching_bank_stacked,
                    proxy_matching, proxy_reconstructed_embedding)
 from ..ops.matching import (compact_reference_bank,
-                            compact_reference_bank_occupancy, flat_bank,
+                            compact_reference_bank_occupancy,
+                            compact_reference_bank_segmented, flat_bank,
                             global_matching_flat,
                             global_matching_flat_segmented)
 from .decoder import CalibrationDecoding, DecoderMemory
@@ -101,11 +102,14 @@ class AOCNet(nn.Module):
     ) -> Tuple[torch.Tensor, DecoderMemory]:
         """One frame's matching + calibration decode → logits [O, h, w].
 
-        With the evaluator's precompacted occupancy bank (``flat_obj``
-        set) the global stream runs through kernel 1; without a
-        precompacted bank the bank is flattened (and fg-compacted) here
-        and matched by the plain online-min.  ``kmeans_scores`` has one
-        row of ``R`` draws per object, ``R`` the rows of the flat bank."""
+        The global stream takes the JAX package's TPU route.  A
+        precompacted label-segmented bank (``MATCHING_SEGMENTED_BANK``
+        with a non-zero cap) runs through kernel 1: the occupancy layout
+        (``flat_obj`` set) as B.1, the uniform-quota layout as B.2.  Any
+        other bank — no cap, the fg-union compaction, or the bank
+        flattened (and fg-compacted) here when none is precompacted —
+        runs through kernel 3 (B.3).  ``kmeans_scores`` has one row of
+        ``R`` draws per object, ``R`` the rows of the flat bank."""
         c = self.cfg
         h, w, _ = current_emb.shape
         o = ref_onehot.shape[-1]
@@ -119,6 +123,7 @@ class AOCNet(nn.Module):
         ref_onehot = ref_onehot * ov
         prev_onehot = prev_onehot * ov
 
+        seg_bank = False
         if flat_emb is None:
             g = c.TEST_GLOBAL_ATROUS_RATE
             flat_emb, flat_lab = flat_bank(ref_emb_bank[:, ::g, ::g],
@@ -126,19 +131,20 @@ class AOCNet(nn.Module):
             if c.MATCHING_MAX_REF_PIXELS:
                 flat_emb, flat_lab = compact_reference_bank(
                     flat_emb, flat_lab, c.MATCHING_MAX_REF_PIXELS)
-            flat_obj = None
         else:
             flat_lab = flat_lab * ov.to(flat_lab.dtype)
+            seg_bank = (c.MATCHING_SEGMENTED_BANK
+                        and bool(c.MATCHING_MAX_REF_PIXELS))
 
         # 1. global pixel matching
-        if flat_obj is not None:
+        if seg_bank:
             global_fg = global_matching_flat_segmented(
                 current_emb, flat_emb.to(dtype), flat_lab.to(dtype), bias,
                 flat_obj, dtype=dtype, mixed=mixed)
         else:
             global_fg = global_matching_flat(
                 current_emb, flat_emb.to(dtype), flat_lab.to(dtype), bias,
-                dtype=dtype)
+                dtype=dtype, mixed=mixed)
 
         # 2. AOP cluster matching
         banks = cluster_objects(flat_emb, flat_lab, kmeans_scores,
@@ -187,7 +193,8 @@ def precompact_bank(cfg: Config, ref_emb_bank: torch.Tensor,
     """Flatten + compaction of the eval reference bank, run by the
     evaluator only when the bank or the object set changes.  Returns
     ``(flat_emb [P, C], flat_lab [P, O], tile_obj)``; ``tile_obj`` is
-    the occupancy layout's tile→object map, None for other layouts."""
+    the occupancy layout's tile→object map, None for the uniform-quota
+    and unsegmented layouts."""
     g = cfg.TEST_GLOBAL_ATROUS_RATE
     flat_emb, flat_lab = flat_bank(ref_emb_bank[:, ::g, ::g],
                                    ref_onehot[:, ::g, ::g], slot_valid)
@@ -196,10 +203,8 @@ def precompact_bank(cfg: Config, ref_emb_bank: torch.Tensor,
     if cfg.MATCHING_SEGMENTED_BANK and cfg.MATCHING_OCCUPANCY_BANK:
         return compact_reference_bank_occupancy(
             flat_emb, flat_lab, cfg.MATCHING_MAX_REF_PIXELS)
-    if cfg.MATCHING_SEGMENTED_BANK:
-        raise NotImplementedError(
-            "the uniform-quota segmented bank (MATCHING_OCCUPANCY_BANK="
-            "False) is not ported yet; use the occupancy bank")
-    flat_emb, flat_lab = compact_reference_bank(flat_emb, flat_lab,
-                                                cfg.MATCHING_MAX_REF_PIXELS)
+    compact = (compact_reference_bank_segmented
+               if cfg.MATCHING_SEGMENTED_BANK else compact_reference_bank)
+    flat_emb, flat_lab = compact(flat_emb, flat_lab,
+                                 cfg.MATCHING_MAX_REF_PIXELS)
     return flat_emb, flat_lab, None

@@ -5,10 +5,11 @@ Layouts follow the JAX package at every function boundary: embeddings
 ``[H, W, C]`` / ``[S, H, W, C]``, one-hot labels ``[..., O]`` with object
 channel 0 = background, distance maps ``[H, W, O, k]``.
 
-* The global stream over the evaluator's precompacted occupancy bank
-  runs through kernel 1 (``cuda_matching.global_seg_map``);
-  ``global_matching_flat`` is the plain online-min over any flat bank,
-  chunked over bank rows so that ``[M, R]`` never exists whole.
+* The global stream runs through one of three kernels, by bank layout:
+  the occupancy-segmented bank through kernel 1
+  (``cuda_matching.global_seg_map``), the uniform-quota segmented bank
+  through kernel 1's ``global_seg`` entry, and any other flat bank
+  through kernel 3 (``cuda_flat.global_flat_min``).
 * The local stream runs through kernel 2 (``cuda_local.local_match``),
   both previous embeddings of a frame in one launch.
 * Bank compaction ranks rows by float32 scores whose hash tie-breaks
@@ -19,12 +20,13 @@ channel 0 = background, distance maps ``[H, W, O, k]``.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .cuda_flat import global_flat_min
 from .cuda_local import local_match
-from .cuda_matching import global_seg_map
+from .cuda_matching import global_seg, global_seg_map, uniform_tile_obj
 from .resize import resize_nchw
 
 WRONG_LABEL_PADDING_DISTANCE = 5e4
@@ -65,6 +67,32 @@ def compact_reference_bank(r_emb: torch.Tensor, r_lab: torch.Tensor,
     score = valid * 2.0 + obj * 2.0 + _hash_tie(r, r_emb.device)
     top = _top_idx(score, max_pixels)
     return r_emb[top], r_lab[top] * valid[top][:, None]
+
+
+def segmented_quota(max_pixels: int, n_obj: int, tile: int = 1024) -> int:
+    """Per-object row quota of the uniform-quota segmented bank."""
+    return max(tile, (max_pixels // (n_obj * tile)) * tile)
+
+
+def compact_reference_bank_segmented(r_emb: torch.Tensor, r_lab: torch.Tensor,
+                                     max_pixels: int, tile: int = 1024):
+    """Uniform-quota label-segmented compaction: object ``o`` owns rows
+    ``[o·quota, (o+1)·quota)``, a hash-tied top-k of its own pixels, then
+    filler rows with zero labels.  Returns ``(emb [O·quota, C],
+    lab [O·quota, O])``."""
+    r, o = r_lab.shape
+    quota = segmented_quota(max_pixels, o, tile)
+    if r < quota:
+        r_emb = torch.cat([r_emb, r_emb.new_zeros((quota - r,) + r_emb.shape[1:])])
+        r_lab = torch.cat([r_lab, r_lab.new_zeros((quota - r, o))])
+        r = quota
+    score = r_lab.float().T * 2.0 + _hash_tie(r, r_emb.device)[None]  # [O, R]
+    tops = _top_idx(score, quota)                                   # [O, quota]
+    sels = r_lab.T.gather(1, tops)                                  # [O, quota]
+    seg_obj = torch.arange(o, device=r_emb.device).repeat_interleave(quota)
+    lab = (torch.nn.functional.one_hot(seg_obj, o).to(r_lab.dtype)
+           * sels.reshape(-1)[:, None])
+    return r_emb[tops.reshape(-1)], lab
 
 
 def compact_reference_bank_occupancy(r_emb: torch.Tensor,
@@ -127,47 +155,34 @@ def compact_reference_bank_occupancy(r_emb: torch.Tensor,
 
 def global_matching_flat_segmented(
     query_emb: torch.Tensor,     # [H, W, C]
-    r_emb: torch.Tensor,         # [P, C] occupancy-segmented bank
+    r_emb: torch.Tensor,         # [P, C] label-segmented bank
     r_lab: torch.Tensor,         # [P, O]
     dis_bias: torch.Tensor,      # [O]
-    tile_obj: torch.Tensor,      # [n_tiles]
+    tile_obj: Optional[torch.Tensor] = None,   # [n_tiles]
     *,
     dtype=torch.float32,
     mixed: bool = False,
 ) -> torch.Tensor:
-    """Global matching over an occupancy-segmented bank through kernel 1
-    → [H, W, O, 1].  The per-row bias folds the filler-row penalty and
-    obj_valid masking (callers zero invalid objects' label columns)."""
+    """Global matching over a label-segmented bank through kernel 1 →
+    [H, W, O, 1]: ``tile_obj`` (from ``compact_reference_bank_occupancy``)
+    selects the occupancy layout (``global_seg_map``, B.1), None the
+    uniform-quota layout of ``compact_reference_bank_segmented``
+    (``global_seg``, B.2).  The per-row bias folds the filler-row penalty
+    and obj_valid masking (callers zero invalid objects' label columns)."""
     h, w, c = query_emb.shape
     o = r_lab.shape[-1]
     p = r_emb.shape[0]
     q = query_emb.reshape(h * w, c).to(dtype)
+    r = r_emb.to(dtype)
+    uniform = tile_obj is None
+    if uniform:
+        tile_obj = uniform_tile_obj(p, o, r_lab.device)
     row_obj = tile_obj.to(torch.int64).repeat_interleave(p // tile_obj.shape[0])
     own = r_lab.float().gather(1, row_obj[:, None])[:, 0]
     bias = (1.0 - own) * WRONG_LABEL_PADDING_DISTANCE
-    d_min = global_seg_map(q, r_emb.to(dtype), bias, tile_obj, n_obj=o,
-                           mixed=mixed)
+    d_min = (global_seg(q, r, bias, n_obj=o, mixed=mixed) if uniform else
+             global_seg_map(q, r, bias, tile_obj, n_obj=o, mixed=mixed))
     return squash_distance(d_min.reshape(h, w, o)[..., None], dis_bias)
-
-
-def global_matching_min(q: torch.Tensor, r_emb: torch.Tensor,
-                        r_lab: torch.Tensor, tile_r: int = 4096
-                        ) -> torch.Tensor:
-    """[M, O] per-object min of ‖q − r‖² + (1 − lab)·5e4 over the bank,
-    ``tile_r`` bank rows at a time (float32 Gram form)."""
-    q32 = q.float()
-    q2 = q32.square().sum(-1)
-    m, o = q.shape[0], r_lab.shape[-1]
-    best = torch.full((m, o), float("inf"), dtype=torch.float32,
-                      device=q.device)
-    for s in range(0, r_emb.shape[0], tile_r):
-        re = r_emb[s:s + tile_r].float()
-        pen = (1.0 - r_lab[s:s + tile_r].float()) * WRONG_LABEL_PADDING_DISTANCE
-        d = q2[:, None] + re.square().sum(-1)[None] - 2.0 * (q32 @ re.T)
-        for oo in range(o):
-            best[:, oo] = torch.minimum(
-                best[:, oo], (d + pen[None, :, oo]).min(dim=1).values)
-    return best
 
 
 def global_matching_flat(
@@ -178,12 +193,19 @@ def global_matching_flat(
     *,
     tile_r: int = 4096,
     dtype=torch.float32,
+    mixed: bool = False,
 ) -> torch.Tensor:
-    """Per-object NN distance maps over a flat bank → [H, W, O, 1]."""
+    """Per-object NN distance maps over any flat bank → [H, W, O, 1].
+
+    On CUDA tensors this launches kernel 3 (``global_flat_min``, B.3); on
+    CPU tensors it runs that kernel's plain version, ``tile_r`` bank rows
+    at a time.  ``mixed`` rounds the cross term's operands to bf16, as
+    the TPU kernel does (the JAX package's CPU path ignores it)."""
     h, w, c = query_emb.shape
     o = r_lab.shape[-1]
     q = query_emb.reshape(h * w, c).to(dtype)
-    d_min = global_matching_min(q, r_emb.to(dtype), r_lab.to(dtype), tile_r)
+    d_min = global_flat_min(q, r_emb.to(dtype), r_lab.to(dtype), mixed,
+                            tile_r=tile_r)
     return squash_distance(d_min.reshape(h, w, o)[..., None], dis_bias)
 
 

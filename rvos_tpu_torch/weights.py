@@ -1,18 +1,21 @@
-"""Weights: flax parameters → the port's state dict, and seeded random
-initialisation.
+"""Weights: reference checkpoints, flax parameters → the port's state
+dict, and seeded random initialisation.
 
 ``from_jax_params`` takes the JAX package's flax params flattened to
 ``/``-joined paths (numpy arrays) and returns a state dict under the
 reference's torch key names and layouts — the inverse of
 ``rvos_tpu/engine/checkpoint.py::convert_torch_statedict`` — which the
-port's ``AOCNet`` loads with ``strict=True``.  The same key names are
-the reference's ``.pth`` names, so reference checkpoints can be loaded
-the same way later.
+port's ``AOCNet`` loads with ``strict=True``.  Those key names are the
+reference's ``.pth`` names, so ``load_reference_checkpoint`` loads a
+reference checkpoint as it is, after the clean-up the JAX package's
+``load_torch_statedict``/``convert_torch_statedict`` apply.  The JAX
+package's own orbax checkpoints need JAX to read and are not loaded.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import re
 from typing import Dict
 
@@ -51,6 +54,26 @@ def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         sd[".".join(tparts + [leaf])] = torch.from_numpy(
             np.array(v, copy=True, order="C"))
     return sd
+
+
+def load_reference_checkpoint(path: str, model: nn.Module) -> nn.Module:
+    """Load a reference ``.pth``/``.pth.tar`` into ``model`` strictly: a
+    raw state dict or the ``{"state_dict": ...}`` wrapper, with the DDP
+    ``module.`` prefix stripped and ``num_batches_tracked`` dropped.
+    Raises when the file is missing, is not a plain-tensor checkpoint,
+    or its keys or shapes do not fit the model."""
+    if os.path.isdir(path):
+        raise ValueError(f"{path} is a directory: orbax checkpoints of the "
+                         "JAX package are not read by the port; give a .pth")
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and isinstance(obj.get("state_dict"), dict):
+        obj = obj["state_dict"]
+    if not isinstance(obj, dict):
+        raise ValueError(f"{path}: no state dict in the checkpoint")
+    sd = {k.removeprefix("module."): v for k, v in obj.items()
+          if k.rsplit(".", 1)[-1] != "num_batches_tracked"}
+    model.load_state_dict(sd, strict=True)
+    return model
 
 
 @torch.no_grad()

@@ -11,6 +11,8 @@ from frame 3 on (a YouTube-VOS style mid-video object), which the
 evaluators splice into the prediction and add to the bank.
 """
 
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -111,6 +113,104 @@ def test_evaluator_outputs_label_set(both):
     if kind == "mid_video_gt":
         new = _new_object_label() == 3
         assert (got["results"]["00003.jpg"][new] == 3).all()
+
+
+# the bank layouts besides the default occupancy bank: a cap of 128 rows
+# (of the 243 three 9×9 slots give) makes the fg-union compaction drop
+# rows; the uniform layout fills 1024-row quotas
+_LAYOUTS = {
+    "cap0": dict(MATCHING_MAX_REF_PIXELS=0),
+    "unsegmented": dict(MATCHING_MAX_REF_PIXELS=128,
+                        MATCHING_SEGMENTED_BANK=False),
+    "uniform": dict(MATCHING_MAX_REF_PIXELS=128, MATCHING_OCCUPANCY_BANK=False),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(_LAYOUTS))
+def test_evaluator_layouts_match_jax(layout, jax_model):
+    """The evaluator under each other bank layout (no cap and the
+    fg-union bank through B.3, the uniform-quota bank through B.2)
+    against the JAX evaluator under the same layout: masks agree on ≥
+    99.9 % of pixels per frame, and the k-means init scores cover every
+    row of the compacted bank (all 243 at no cap)."""
+    from rvos_tpu.models import AOCNet
+
+    _, _, variables = jax_model
+    kw = dict(CFG_KW, **_LAYOUTS[layout])
+    cfg = tiny_test(**kw)
+    seq = SyntheticEval(size=SIZE, n_seqs=1, n_frames=6)[0]
+    want = Evaluator(cfg, AOCNet(cfg), variables).evaluate_sequence(seq)[
+        "results"]
+
+    tcfg = tconfigs.tiny_test(**kw)
+    tmodel = TAOCNet(tcfg)
+    tmodel.load_state_dict(
+        from_jax_params(_flatten(jax.device_get(variables["params"]))),
+        strict=True)
+    rows = []
+
+    def scores(frame_idx, n_obj, n_rows):
+        rows.append(n_rows)
+        return _jax_kmeans_scores(frame_idx, n_obj, n_rows)
+
+    ev = TEvaluator(tcfg, tmodel, device="cpu", kmeans_scores=scores)
+    got = ev.evaluate_sequence(TSyntheticEval(size=SIZE, n_seqs=1,
+                                              n_frames=6)[0])["results"]
+    assert rows == [{"cap0": 243, "unsegmented": 128, "uniform": 4096}[layout]
+                    ] * 5
+    assert sorted(got) == sorted(want)
+    assert any(len(np.unique(m)) > 1 for m in want.values())
+    for name, mask in want.items():
+        agree = (got[name] == mask).mean()
+        assert agree >= 0.999, (name, agree)
+
+
+def test_lockstep_masks_on_one_device_agree_exactly():
+    """``lockstep_masks`` with the CPU on both sides: every frame's
+    repeat gives the very same logits, so the masks agree everywhere,
+    and each bank compaction (frames 1 and 3) is repeated identically."""
+    from rvos_tpu_torch.engine import eval as eval_mod
+    from rvos_tpu_torch.engine.lockstep import lockstep_masks
+
+    cfg = tconfigs.tiny_test(**CFG_KW)
+
+    def scores(frame_idx, n_obj, n_rows):
+        return torch.full((n_obj, n_rows), 0.75) + 1e-4 * torch.arange(n_rows)
+
+    compact = eval_mod.precompact_bank
+    agree, max_dlogit, max_demb, banks = lockstep_masks(
+        cfg, lambda: init_random_(TAOCNet(cfg), torch.Generator().manual_seed(2)),
+        TSyntheticEval(size=SIZE, n_seqs=1, n_frames=4)[0], scores,
+        device="cpu")
+    assert agree == [1.0, 1.0, 1.0] and max_dlogit == max_demb == 0.0
+    assert banks == [True, True]
+    assert eval_mod.precompact_bank is compact
+
+
+@pytest.mark.parametrize("layout", ["occupancy", "cap0"])
+def test_whole_video_agreement_on_one_device_is_exact(layout):
+    """``whole_video_agreement`` with the CPU on both sides, in the
+    parity setting of the card checks: two runs agree on every pixel."""
+    from rvos_tpu_torch.engine.lockstep import (parity_config, parity_scores,
+                                                whole_video_agreement)
+
+    cfg = parity_config(layout)
+    agree = whole_video_agreement(
+        cfg, lambda: init_random_(TAOCNet(cfg), torch.Generator().manual_seed(0)),
+        lambda: TSyntheticEval(size=(65, 65), n_seqs=1, n_frames=4)[0],
+        parity_scores, device="cpu")
+    assert agree == [1.0, 1.0, 1.0]
+
+
+def test_noise_sensitivity_cli_runs(capsys):
+    """The noise experiment's script, on the CPU at 4 frames: no noise
+    leaves every mask as it was; one JSON line per layout."""
+    from rvos_tpu_torch.cli import noise_sensitivity
+
+    noise_sensitivity.main(["--device", "cpu", "--eps", "0", "--seeds", "1",
+                            "--frames", "4", "--layout", "uniform"])
+    out = json.loads(capsys.readouterr().out.strip())
+    assert out["layout"] == "uniform" and out["min_frame_agreement_per_seed"] == [1.0]
 
 
 def test_evaluator_requires_cuda_unless_cpu_requested():

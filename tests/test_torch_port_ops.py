@@ -17,7 +17,9 @@ from rvos_tpu.ops import matching as jm
 from rvos_tpu.ops import proxies as jp
 from rvos_tpu.ops.entropy import shannon_entropy as j_entropy
 from rvos_tpu.ops.pallas_local import local_matching_pallas
-from rvos_tpu.ops.pallas_matching import global_matching_pallas_segmented_mapped
+from rvos_tpu.ops.pallas_matching import (global_matching_pallas,
+                                          global_matching_pallas_segmented,
+                                          global_matching_pallas_segmented_mapped)
 from rvos_tpu.ops.resize import resize_hw as j_resize_hw
 
 from rvos_tpu_torch import ops as tops
@@ -140,6 +142,117 @@ def test_global_seg_map_plain_matches_pallas(kind, mixed, rng):
         _t(q).reshape(5, 10, -1), _t(np.asarray(oe)), _t(np.asarray(ol)),
         _t(dis_bias), _t(np.asarray(tobj)), mixed=mixed).numpy()
     np.testing.assert_allclose(got_sq, want_sq, atol=2e-3 if mixed else 5e-4)
+
+
+@pytest.mark.parametrize("kind", sorted(_BANKS))
+def test_segmented_compaction_selects_identical_rows(kind, rng):
+    """The uniform-quota layout: the same rows land in the same segments,
+    with the same filler rows, as in the JAX package."""
+    emb, lab = _skewed_bank(rng, kind)
+    je, jl = jm.compact_reference_bank_segmented(
+        jnp.asarray(emb), jnp.asarray(lab), 8192, tile=1024)
+    te, tl = tm.compact_reference_bank_segmented(_t(emb), _t(lab), 8192,
+                                                 tile=1024)
+    assert tm.segmented_quota(8192, 4) == jm.segmented_quota(8192, 4) == 2048
+    np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    counts, _ = _BANKS[kind]
+    assert tl.numpy().sum(0).tolist() == [min(n, 2048) for n in counts]
+    # a bank smaller than one quota is padded with zero rows first
+    je, jl = jm.compact_reference_bank_segmented(
+        jnp.asarray(emb[:700]), jnp.asarray(lab[:700]), 8192)
+    te, tl = tm.compact_reference_bank_segmented(_t(emb[:700]),
+                                                 _t(lab[:700]), 8192)
+    np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+
+
+def _flat_bank_with_gaps(rng, r=2500, c=12, o=4):
+    """A flat bank of ``r`` rows (not a multiple of the Pallas wrapper's
+    1024) with padding rows (all-zero labels), object 3 with no rows, and
+    object 2's column zeroed as an invalid object's is."""
+    emb = rng.standard_normal((r, c)).astype(np.float32)
+    lab = np.eye(o, dtype=np.float32)[rng.integers(0, 3, r)]
+    lab[rng.random(r) < 0.2] = 0.0            # padding rows
+    lab[:, 2] = 0.0                           # obj_valid zeroes object 2
+    return emb, lab
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_global_flat_min_plain_matches_pallas(mixed, rng):
+    """B.3's plain version against the Pallas ``_kernel`` in interpret
+    mode.  Live entries (< 2.5e4, a channel with rows): atol 1e-3 in
+    float32; in mixed mode max |Δ|/max(|d|, 1) ≤ 4e-3, since the Pallas
+    kernel rounds each distance to bf16 before its bf16 min and the port
+    keeps float32.  Penalised entries (objects 2 and 3): the Pallas
+    kernel rounds bf16(d) + bf16(5e4) = … + 49,920 to bf16 (ulp 256) in
+    mixed mode, and its zero padding rows (d = ‖q‖²) may win there in
+    both modes, where the port skips them: |Δ| ≤ 300, and both squash to
+    exactly 1.0.  Squashed maps: atol 2e-3 (mixed; the squash's slope is
+    at most 0.5) and 5e-4 (float32)."""
+    emb, lab = _flat_bank_with_gaps(rng)
+    q = rng.standard_normal((50, emb.shape[1])).astype(np.float32)
+    want = np.asarray(global_matching_pallas(
+        jnp.asarray(q), jnp.asarray(emb), jnp.asarray(lab), interpret=True,
+        mixed=mixed))
+    got = tops.global_flat_min(_t(q), _t(emb), _t(lab), mixed=mixed,
+                               tile_r=1000).numpy()
+    assert got.shape == want.shape == (50, 4)
+    live = want < 2.5e4
+    assert live[:, :2].all() and not live[:, 2:].any()
+    if mixed:
+        rel = np.abs(got[live] - want[live]) / np.maximum(np.abs(want[live]), 1.0)
+        assert rel.max() <= 4e-3, rel.max()
+    else:
+        np.testing.assert_allclose(got[live], want[live], atol=1e-3)
+    assert np.abs(got[~live] - want[~live]).max() <= 300
+    bias = rng.standard_normal(4).astype(np.float32) * 0.1
+    want_sq = np.asarray(jm.squash_distance(
+        jnp.asarray(want).reshape(5, 10, 4, 1), jnp.asarray(bias)))
+    got_sq = tm.global_matching_flat(_t(q).reshape(5, 10, -1), _t(emb),
+                                     _t(lab), _t(bias), mixed=mixed).numpy()
+    np.testing.assert_allclose(got_sq, want_sq, atol=2e-3 if mixed else 5e-4)
+    assert (got_sq[:, :, 2:] == 1.0).all() and (want_sq[:, :, 2:] == 1.0).all()
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_global_seg_matches_pallas(mixed, rng):
+    """B.2: the uniform-quota bank through ``global_seg`` against the
+    Pallas ``_kernel_seg`` in interpret mode, raw and through
+    ``global_matching_flat_segmented(tile_obj=None)`` squashed.  The
+    bank of ``_skewed_bank("dominant")`` holds every object, with fewer
+    background pixels than a quota (filler rows in segment 0).  Same
+    tolerances as kernel 1's check."""
+    emb, lab = _skewed_bank(rng, "dominant")
+    o = lab.shape[1]
+    se, sl = jm.compact_reference_bank_segmented(jnp.asarray(emb),
+                                                 jnp.asarray(lab), 8192)
+    p = se.shape[0]
+    bias = ((1.0 - np.asarray(sl)[np.arange(p), np.arange(p) // (p // o)])
+            * 5e4).astype(np.float32)
+    assert bias.max() == 5e4 and bias.min() == 0.0
+    q = rng.standard_normal((50, emb.shape[1])).astype(np.float32)
+    want = np.asarray(global_matching_pallas_segmented(
+        jnp.asarray(q), se, jnp.asarray(bias), n_obj=o, interpret=True,
+        mixed=mixed))
+    got = tops.global_seg(_t(q), _t(np.asarray(se)), _t(bias), n_obj=o,
+                          mixed=mixed).numpy()
+    if mixed:
+        rel = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
+        assert rel.max() <= 4e-3, rel.max()
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-3)
+    dis_bias = rng.standard_normal(o).astype(np.float32) * 0.1
+    want_sq = np.asarray(jm.global_matching_flat_segmented(
+        jnp.asarray(q).reshape(5, 10, -1), se, sl, jnp.asarray(dis_bias),
+        mixed=mixed, interpret=True))
+    got_sq = tm.global_matching_flat_segmented(
+        _t(q).reshape(5, 10, -1), _t(np.asarray(se)), _t(np.asarray(sl)),
+        _t(dis_bias), mixed=mixed).numpy()
+    np.testing.assert_allclose(got_sq, want_sq, atol=2e-3 if mixed else 5e-4)
+    with pytest.raises(ValueError, match="segment-aligned"):
+        tops.global_seg(_t(q), torch.zeros((4 * 1000, 12)), torch.zeros(4000),
+                        n_obj=4)
 
 
 def test_global_matching_flat_matches_jax(rng):
@@ -286,3 +399,28 @@ def test_wrappers_take_plain_path_only_on_cpu(rng):
     with pytest.raises(ValueError, match="one device expected"):
         tops.local_match(torch.zeros((3, 4, 8)), torch.empty((2, 3, 4, 8), **meta),
                          torch.zeros((3, 4, 2)), (1,))
+
+
+def test_flat_and_uniform_wrappers_take_plain_path_only_on_cpu():
+    """B.3's and B.2's wrappers, as kernel 1's and 2's above."""
+    n1, n2 = tops.global_flat_min.launches, tops.global_seg.launches
+    tops.global_flat_min(torch.zeros((4, 8)), torch.zeros((100, 8)),
+                         torch.zeros((100, 3)))
+    tops.global_seg(torch.zeros((4, 8)), torch.zeros((2048, 8)),
+                    torch.zeros(2048), n_obj=2)
+    assert (tops.global_flat_min.launches, tops.global_seg.launches) == (n1, n2)
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tops.global_flat_min(torch.empty((4, 8), **meta),
+                             torch.empty((100, 8), **meta),
+                             torch.empty((100, 3), **meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tops.global_seg(torch.empty((4, 8), **meta),
+                        torch.empty((2048, 8), **meta),
+                        torch.empty(2048, **meta), n_obj=2)
+    with pytest.raises(ValueError, match="one device expected"):
+        tops.global_flat_min(torch.zeros((4, 8)), torch.empty((100, 8), **meta),
+                             torch.zeros((100, 3)))
+    with pytest.raises(ValueError, match="one device expected"):
+        tops.global_seg(torch.zeros((4, 8)), torch.zeros((2048, 8)),
+                        torch.empty(2048, **meta), n_obj=2)
