@@ -5,9 +5,11 @@
 
 Phases, one line each (a failing phase raises and exits non-zero):
 
-1. the card (``nvidia-smi`` name and power limit) and the build of the
+1. the card (``nvidia-smi`` name and power limit), the build of the
    three CUDA sources in ``rvos_tpu_torch/csrc`` (one ``nvcc`` per
-   source, started together);
+   source, started together) and the count of tensor-core instructions
+   (``HMMA``/``HGMMA`` in ``cuobjdump -sass``) in each library: the two
+   global-matching libraries must have some;
 2. each kernel against its plain PyTorch version at the shapes of the
    path that runs it, in float32 (max |Δ|/max(|d|, 1) ≤ 1e-4) and mixed
    precision (≤ 4e-3), with its time beside the plain version's, its
@@ -35,6 +37,9 @@ Phases, one line each (a failing phase raises and exits non-zero):
    (``engine.lockstep``): the masks must agree on every frame and the
    compacted banks be identical; under the layouts of
    ``WHOLE_VIDEO_LAYOUTS`` two whole-video runs must agree as well.
+   Then one more lock-step run per layout with mixed matching (float32
+   compute, TF32 off for convolutions too), which holds the global
+   kernels' tensor-core paths to the CPU's plain mixed versions.
 
 The lines before the last are a JSON object of the kernels' numbers and
 the card's name and power limit; the last line is
@@ -45,14 +50,25 @@ without a CUDA device.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 F32_TOL, MIXED_TOL = 1e-4, 4e-3
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
+
+def _mma_count(lib) -> int:
+    """Tensor-core instructions (HMMA, HGMMA) in a built library's SASS."""
+    from rvos_tpu_torch.ops import _cuda
+    tool = str(Path(_cuda._nvcc()).with_name("cuobjdump"))
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    return len(re.findall(r"\bH(?:G)?MMA\b", out))
 
 
 def _card() -> str:
@@ -182,8 +198,10 @@ def check_uniform(torch, ops, shapes, mixed: bool):
 def check_flat(torch, ops, shapes, mixed: bool, fg_union: bool):
     """B.3 over a flat bank of 8 slots: every row (no cap, R = 206,184)
     or the fg-union compaction to 16,384 rows.  Its bound counts the
-    cross term at the operands' rate and the O adds and mins per
-    (query, bank row) pair of the penalised min at the float32 rate."""
+    cross term at the operands' rate and the penalised min at the float32
+    rate: for one-hot-or-zero labels, as here, a min into A and one into
+    the row's object per (query, bank row) pair (2·M·R); for general
+    labels the O adds and mins of the general formula (2·M·R·O)."""
     from rvos_tpu_torch.ops.matching import compact_reference_bank
     m, c, o = shapes["m"], shapes["c"], shapes["o"]
     r, lab, q = _bank(torch, shapes, 4)
@@ -194,12 +212,15 @@ def check_flat(torch, ops, shapes, mixed: bool, fg_union: bool):
         q, r = q.bfloat16().float(), r.bfloat16().float()
     # the fg-union compaction keeps object rows first: background drops out
     live = int(lab.sum(0).gt(0).sum())
+    one = lab == 1
+    onehot = bool((((lab == 0) | one).all(1) & (one.sum(1) <= 1)).all())
     return _measure(
         torch, "global_flat_min", mixed,
         lambda: ops.global_flat_min(q, r, lab, mixed),
         lambda: ops.global_flat_min_plain(q, r, lab, mixed),
         _cross(torch, q, r, mixed, 16384), (m * c + n * c + n * o + m * o) * 4,
-        2.0 * m * n * c, [m, n, c, o], f32_ops=2.0 * m * n * o,
+        2.0 * m * n * c, [m, n, c, o],
+        f32_ops=2.0 * m * n * (1 if onehot else o),
         plain_reps=1, reps=10 if fg_union else 3, live=(live, 2.5e4))
 
 
@@ -297,16 +318,22 @@ def main() -> int:
     card = _card()
     t0 = time.time()
     paths = _cuda.build(["global_seg_map", "local_match", "global_flat_match"])
+    built_s = time.time() - t0
     ptxas = []
     for name in paths:
         log = (_cuda.BUILD_DIR / f"{name}.log")
         if log.exists():
             ptxas += [ln.strip() for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln]
+                      if "registers" in ln or "spill" in ln
+                      or "Compiling entry" in ln]
+    mma = {name: _mma_count(path) for name, path in paths.items()}
     print(f"phase 1 card: {card} | {torch.cuda.get_device_name(0)} | "
           f"torch {torch.__version__} cuda {torch.version.cuda} | built "
-          f"{len(paths)} kernels in {time.time() - t0:.1f} s | "
-          + " ; ".join(ptxas), flush=True)
+          f"{len(paths)} kernels in {built_s:.1f} s | HMMA/HGMMA in SASS "
+          f"{mma} | " + " ; ".join(ptxas), flush=True)
+    for name in ("global_seg_map", "global_flat_match"):
+        if not mma[name]:
+            raise AssertionError(f"{name}: no tensor-core instruction in SASS")
 
     # ---- phase 2: kernels vs plain versions at their paths' shapes
     t0 = time.time()
@@ -370,38 +397,42 @@ def main() -> int:
               f"[{card}]", flush=True)
         del lev, lmodel
 
-    # ---- phase 4: small-size reference check, card vs CPU, parity mode
+    # ---- phase 4: small-size reference check, card vs CPU, parity
+    # setting; float32 matching, then mixed matching (tensor-core paths)
     t0 = time.time()
     agree = {}
     for name in BANK_LAYOUTS:
-        small = parity_config(name)
+        for matching in ("float32", "mixed"):
+            small = parity_config(name, matching)
 
-        def make_model():
-            return init_random_(AOCNet(small), torch.Generator().manual_seed(0))
+            def make_model():
+                return init_random_(AOCNet(small),
+                                    torch.Generator().manual_seed(0))
 
-        def make_seq():
-            return SyntheticEval(size=(65, 65), n_seqs=1, n_frames=6)[0]
+            def make_seq():
+                return SyntheticEval(size=(65, 65), n_seqs=1, n_frames=6)[0]
 
-        lock = lockstep_masks(small, make_model, make_seq(), parity_scores)
-        whole = None
-        if name in WHOLE_VIDEO_LAYOUTS:
-            whole = whole_video_agreement(small, make_model, make_seq,
-                                          parity_scores)
-        agree[name] = dict(lockstep=min(lock.agree), dlogit=lock.max_dlogit,
-                           demb=lock.max_demb, banks=lock.banks_equal,
-                           whole_video=min(whole) if whole else None)
-        if not (len(lock.agree) == 5 and min(lock.agree) >= 0.999
-                and lock.max_dlogit < 1e-2 and lock.max_demb < 1e-3
-                and lock.banks_equal and all(lock.banks_equal)
-                and (whole is None or (len(whole) == 5
-                                       and min(whole) >= 0.999))):
-            raise AssertionError(f"{name}: card vs CPU: {agree[name]}, "
-                                 f"lock-step frames {lock.agree}, whole "
-                                 f"video {whole}")
-    print(f"phase 4 small parity card vs cpu (min per-frame agreement in "
-          f"lock-step and whole-video runs, max |dlogit|, max |demb|, bank "
-          f"compactions identical): {agree}, took {time.time() - t0:.1f} s",
-          flush=True)
+            lock = lockstep_masks(small, make_model, make_seq(), parity_scores)
+            whole = None
+            if name in WHOLE_VIDEO_LAYOUTS and matching == "float32":
+                whole = whole_video_agreement(small, make_model, make_seq,
+                                              parity_scores)
+            key = f"{name}/{matching}"
+            agree[key] = dict(lockstep=min(lock.agree), dlogit=lock.max_dlogit,
+                              demb=lock.max_demb, banks=lock.banks_equal,
+                              whole_video=min(whole) if whole else None)
+            if not (len(lock.agree) == 5 and min(lock.agree) >= 0.999
+                    and lock.max_dlogit < 1e-2 and lock.max_demb < 1e-3
+                    and lock.banks_equal and all(lock.banks_equal)
+                    and (whole is None or (len(whole) == 5
+                                           and min(whole) >= 0.999))):
+                raise AssertionError(f"{key}: card vs CPU: {agree[key]}, "
+                                     f"lock-step frames {lock.agree}, whole "
+                                     f"video {whole}")
+    print(f"phase 4 small parity setting card vs cpu, float32 and mixed "
+          f"matching (min per-frame agreement in lock-step and whole-video "
+          f"runs, max |dlogit|, max |demb|, bank compactions identical): "
+          f"{agree}, took {time.time() - t0:.1f} s", flush=True)
 
     kernels = []
     for key, name, src, rep, n in (

@@ -1,48 +1,50 @@
-// Global matching over an occupancy-segmented reference bank (kernel 1).
+// Global matching over a label-segmented bank (kernel 1).
 //
 // Replaces rvos_tpu/ops/pallas_matching.py::_kernel_seg_map (wrapper
-// global_matching_pallas_segmented_mapped).  For query rows q [M, C] and a
-// bank r [P, C] cut into n_tiles label-pure tiles of tile_rows rows, with
-// tile t owned by object tile_obj[t]:
+// global_matching_pallas_segmented_mapped) and, routed by equal quotas,
+// _kernel_seg (wrapper global_matching_pallas_segmented).  For query rows
+// q [M, C] and a bank r [P, C] cut into n_tiles label-pure tiles of
+// tile_rows rows, with tile t owned by object tile_obj[t]:
 //
 //   out[m, o] = min over rows p of the tiles owned by o of
 //               (||q_m||^2 + ||r_p||^2 + bias_p - 2 q_m . r_p)
 //
-// and 1e5 for a channel that owns no tile.  The caller passes the operands
-// transposed (qT [C, M], rT [C, P], float32, already rounded through bf16 in
-// mixed mode) and the row terms q2 [M] and r2b [P] = ||r||^2 + bias in
-// float32, so the kernel does only the O(M*P*C) work: the cross term and
-// the min routing.
+// and 1e5 for a channel that owns no tile.  The caller passes the row
+// terms q2 [M] and r2b [P] = ||r||^2 + bias in float32 (norms of the
+// unrounded values), so the kernel does only the O(M*P*C) work: the cross
+// term and the min routing.
 //
 // What bounds it on the H100: operations.  2*M*P*C = 84.5 GFLOP at the
 // main path's shapes (M = 25,773, P = 16,384, C = 100) against ~18 MB of
-// inputs and outputs.  Design: one CTA per 64 query rows keeps its query
-// tile in shared memory for the whole bank walk and streams 64-row bank
-// steps through shared memory; each of 256 threads owns a 4x4 micro-tile of
-// the 64x64 distance block in registers (16 FMAs per two 16-byte shared
-// loads), keeps a running min per query row over the current label-pure
-// bank tile, and at the tile's end reduces across the 16 threads of its
-// row group with warp shuffles and min-updates the row of tile_obj[t] in a
-// shared [64, O] block.  The [M, P] distance matrix never exists.  The
-// cross term runs in float32 FMA in both modes (never TF32); in mixed mode
-// the operands arrive rounded to bf16, so the products are exact and the
-// arithmetic equals a bf16 product with float32 accumulation.  Using the
-// tensor cores (mma/wgmma on bf16 operands) is the next step for speed.
-#include <cuda_runtime.h>
-#include <math.h>
+// inputs and outputs.
+//
+// Mixed mode (seg_map_mma_kernel): the cross term on the bf16 tensor
+// cores through dist_tile.cuh's mainloop (128 query rows per CTA, 64-row
+// bank steps through a cp.async ring, wgmma with float32
+// accumulation).  A tile holds a whole number of steps, so step s belongs
+// to object tile_obj[s / steps_per_tile].  The epilogue keeps a running
+// min of d' per query row while the steps' object stays the same, and when
+// it changes (or the walk ends) reduces across the quad of lanes that
+// share a row and min-updates column tile_obj of a shared [128, O] block.
+// The result is min(1e5, ||q||^2 + that block).  The bank axis is split
+// over several CTAs per query tile, combined by an atomic min.
+//
+// Float32 (parity) mode (seg_map_kernel): the SIMT float32 FMA path of
+// dist_tile.cuh (never TF32), one CTA per 64 query rows, the running min
+// per tile reduced over a half-warp at the tile's end.
+#include "dist_tile.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // query rows per CTA
-constexpr int BN = 64;        // bank rows per step
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+using namespace dist_tile;
 constexpr float EMPTY_DIST = 1e5f;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(simt::THREADS)
 seg_map_kernel(const float* __restrict__ qT, const float* __restrict__ q2,
                const float* __restrict__ rT, const float* __restrict__ r2b,
                const int* __restrict__ tile_obj, float* __restrict__ out,
                int M, int P, int C, int O, int n_tiles, int tile_rows) {
+  using namespace simt;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;            // [C][BM]
   float* rs = qs + C * BM;     // [C][BN]
@@ -54,10 +56,7 @@ seg_map_kernel(const float* __restrict__ qT, const float* __restrict__ q2,
   const int ty = tid >> 4;
   const int m0 = blockIdx.x * BM;
 
-  for (int i = tid; i < C * BM; i += THREADS) {
-    const int c = i / BM, j = i - c * BM, m = m0 + j;
-    qs[i] = (m < M) ? qT[(size_t)c * M + m] : 0.f;
-  }
+  load_query(qs, qT, M, C, m0, tid);
   for (int i = tid; i < BM * O; i += THREADS) os[i] = EMPTY_DIST;
   float qn[4];
 #pragma unroll
@@ -72,29 +71,12 @@ seg_map_kernel(const float* __restrict__ qT, const float* __restrict__ q2,
     const int n_end = (t + 1) * tile_rows;
     for (int n0 = t * tile_rows; n0 < n_end; n0 += BN) {
       __syncthreads();  // the previous step's readers are done with rs
-      for (int i = tid; i < C * BN; i += THREADS) {
-        const int c = i / BN, j = i - c * BN;
-        rs[i] = rT[(size_t)c * P + n0 + j];
-      }
+      load_rows(rs, rT, P, C, n0, tid);
       if (tid < BN) rb[tid] = r2b[n0 + tid];
       __syncthreads();
 
       float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < C; ++c) {
-        const float4 a = *reinterpret_cast<const float4*>(qs + c * BM + ty * 4);
-        const float4 b = *reinterpret_cast<const float4*>(rs + c * BN + tx * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
+      cross(qs, rs, C, tx, ty, acc);
       const float4 r4 = *reinterpret_cast<const float4*>(rb + tx * 4);
       const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
 #pragma unroll
@@ -103,14 +85,9 @@ seg_map_kernel(const float* __restrict__ qT, const float* __restrict__ q2,
         for (int j = 0; j < 4; ++j)
           run[i] = fminf(run[i], qn[i] + rv[j] - 2.f * acc[i][j]);
     }
-    // the 16 threads of a row group are one half-warp: reduce by shuffles
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float v = run[i];
-      v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 8));
-      v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-      v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-      v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      const float v = half_warp_min(run[i]);
       if (tx == 0 && obj >= 0 && obj < O) {
         float* slot = os + (ty * 4 + i) * O + obj;
         *slot = fminf(*slot, v);
@@ -124,6 +101,66 @@ seg_map_kernel(const float* __restrict__ qT, const float* __restrict__ q2,
   }
 }
 
+template <int KS>
+__global__ void __launch_bounds__(tc::THREADS, tc::MIN_CTAS)
+seg_map_mma_kernel(const uint16_t* __restrict__ q,
+                   const float* __restrict__ q2,
+                   const uint16_t* __restrict__ rb,
+                   const float* __restrict__ r2b,
+                   const int* __restrict__ tile_obj, float* __restrict__ out,
+                   int M, int n_steps, int O, int steps_per_tile,
+                   int steps_per_split) {
+  using namespace tc;
+  extern __shared__ __align__(128) char smem_tc[];
+  char* ring = smem_tc;
+  float* bs = reinterpret_cast<float*>(smem_tc + ring_bytes(16 * KS));
+  // bs [BM][O]: per (query row, object) min of d'
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < BM * O; i += THREADS) bs[i] = INFINITY;
+  AFrag<KS> a;
+  load_query<KS>(a, q, M, tid);
+
+  float run[MT][2];
+  int cur = -1;
+  auto reset = [&]() {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) run[i][0] = run[i][1] = INFINITY;
+  };
+  // fold the running mins into column cur of the shared block
+  auto flush = [&]() {
+    if (cur >= 0 && cur < O) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float v = quad_min(run[i][h]);
+          if ((lane & 3) == 0) {
+            float* slot = bs + local_row(warp, lane, i, h) * O + cur;
+            *slot = fminf(*slot, v);
+          }
+        }
+    }
+    reset();
+  };
+  reset();
+  int s_begin, s_end;
+  split_range(n_steps, steps_per_split, &s_begin, &s_end);
+  walk<KS>(ring, rb, r2b, tile_obj, steps_per_tile, s_begin, s_end, a, tid,
+           [&](int, int k, Block& d) {
+         if (k != cur) {
+           flush();
+           cur = k;
+         }
+         row_min(run, d);
+       });
+  flush();
+  // a channel with no tile reads EMPTY_DIST (min(1e5, +inf))
+  write_out(out, q2, M, O, tid, [&](int, int, int lr, int o, float qm) {
+    return fminf(EMPTY_DIST, qm + bs[lr * O + o]);
+  });
+}
+
 }  // namespace
 
 extern "C" int global_seg_map_launch(const float* qT, const float* q2,
@@ -131,6 +168,7 @@ extern "C" int global_seg_map_launch(const float* qT, const float* q2,
                                      const int* tile_obj, float* out, int M,
                                      int P, int C, int O, int n_tiles,
                                      int tile_rows, void* stream) {
+  using namespace simt;
   const size_t smem = (size_t)(C * BM + C * BN + BN + BM * O) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       seg_map_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -139,4 +177,51 @@ extern "C" int global_seg_map_launch(const float* qT, const float* q2,
   seg_map_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       qT, q2, rT, r2b, tile_obj, out, M, P, C, O, n_tiles, tile_rows);
   return (int)cudaGetLastError();
+}
+
+template <int KS>
+int launch_mma(const void* q, const float* q2, const void* rb,
+               const float* r2b, const int* tile_obj, float* out, int M,
+               int n_steps, int O, int steps_per_tile, int steps_per_split,
+               cudaStream_t stream) {
+  using namespace tc;
+  const size_t smem =
+      (size_t)ring_bytes(16 * KS) + (size_t)BM * O * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      seg_map_mma_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((M + BM - 1) / BM,
+                  (n_steps + steps_per_split - 1) / steps_per_split);
+  seg_map_mma_kernel<KS><<<grid, THREADS, smem, stream>>>(
+      static_cast<const uint16_t*>(q), q2, static_cast<const uint16_t*>(rb),
+      r2b, tile_obj, out, M, n_steps, O, steps_per_tile, steps_per_split);
+  return (int)cudaGetLastError();
+}
+
+// Mixed mode: q [M, cp] and rb [n_steps * 64, cp] bf16 from
+// dist_prep_query / dist_prep_bank (rb = -2 r, cp % 16 == 0, cp <= 128),
+// q2 [M], r2b [n_steps * 64] = ||r||^2 + bias, tile_obj [n_steps /
+// steps_per_tile]; the bank is split into runs of steps_per_split steps,
+// one CTA each per query tile (out must hold +inf when there is more than
+// one run).
+extern "C" int global_seg_map_mma_launch(const void* q, const float* q2,
+                                         const void* rb, const float* r2b,
+                                         const int* tile_obj, float* out,
+                                         int M, int n_steps, int cp, int O,
+                                         int steps_per_tile,
+                                         int steps_per_split, void* stream) {
+  if (cp % 16 || steps_per_split < 1 || steps_per_tile < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define LAUNCH(KS)                                                       \
+  case KS:                                                               \
+    return launch_mma<KS>(q, q2, rb, r2b, tile_obj, out, M, n_steps, O,  \
+                          steps_per_tile, steps_per_split, s)
+  switch (cp / 16) {
+    LAUNCH(1); LAUNCH(2); LAUNCH(3); LAUNCH(4);
+    LAUNCH(5); LAUNCH(6); LAUNCH(7); LAUNCH(8);
+  }
+#undef LAUNCH
+  return (int)cudaErrorInvalidValue;
 }

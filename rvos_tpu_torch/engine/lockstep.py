@@ -52,15 +52,16 @@ class LockstepResult(NamedTuple):
 WHOLE_VIDEO_LAYOUTS = ("occupancy", "uniform", "unsegmented")
 
 
-def parity_config(layout: str) -> Config:
+def parity_config(layout: str, matching: str = "float32") -> Config:
     """``tiny_test`` at 65×65 with 4 object channels, 3 bank slots and
     float32 compute, under bank layout ``layout`` (``BANK_LAYOUTS``); the
     fg-union layout gets a cap below the 867 rows of 3 slots, so that its
-    compaction drops rows."""
+    compaction drops rows.  ``matching="mixed"`` puts the global stream's
+    cross term on bf16 operands (the kernels' tensor-core path)."""
     cap = dict(MATCHING_MAX_REF_PIXELS=512) if layout == "unsegmented" else {}
     return tiny_test(DATA_RANDOMCROP=(65, 65), MODEL_MULTI_LOCAL_DISTANCE=(2, 4),
                      MODEL_MAX_OBJ_NUM=4, TEST_MAX_SIZE=None,
-                     TEST_BANK_CAPACITY=3, MEM_EVERY=2,
+                     TEST_BANK_CAPACITY=3, MEM_EVERY=2, MATCHING_DTYPE=matching,
                      EVAL_COMPUTE_DTYPE="float32", **BANK_LAYOUTS[layout], **cap)
 
 
@@ -102,9 +103,12 @@ def lockstep_masks(cfg: Config, make_model: Callable[[], AOCNet], seq,
     """Stream ``seq`` with an evaluator on ``device``, repeating each
     frame's ``segment_frame`` and each bank compaction on a reference
     model on ``ref_device``.  ``make_model()`` returns a fresh model with
-    the weights both use."""
+    the weights both use.  Convolutions run without TF32, which
+    ``device.configure_precision`` turns off only in parity mode: a
+    comparison with the CPU needs it off under mixed matching too."""
     ev = Evaluator(cfg, make_model(), device=device,
                    kmeans_scores=kmeans_scores)
+    torch.backends.cudnn.allow_tf32 = False
     ref = make_model().to(device=ref_device, dtype=ev.dtype).eval()
     hw = tuple(seq[0]["current_img"].shape[:2])
     segment, extract = ev.model.segment_frame, ev.model.extract_feature

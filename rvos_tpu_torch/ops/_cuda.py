@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded through ``ctypes`` — no PyTorch
 headers, so a build takes seconds.  Libraries go to
 ``rvos_tpu_torch/_build/`` (listed in ``.gitignore``) under a name that
-carries a hash of the source and the flags, so an edited source is
-rebuilt at its next use.  Nothing is built or loaded at import time.
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt at its next use.
+Nothing is built or loaded at import time.
 """
 
 from __future__ import annotations
@@ -41,7 +42,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, the headers of
+    ``csrc/`` and the flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

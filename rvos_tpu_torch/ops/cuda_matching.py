@@ -10,9 +10,9 @@ and a bank ``r [P, C]`` of ``n_tiles`` label-pure tiles owned by
 
 and ``_EMPTY_DIST = 1e5`` for a channel that owns no tile.  Mixed mode
 takes the cross term from bf16-rounded operands with float32
-accumulation; norms, bias and the min stay float32 (the Pallas kernel
-also takes the min in bf16 — a float32 min is within the mixed
-tolerance).
+accumulation, on the tensor cores; norms, bias and the min stay float32
+(the Pallas kernel also takes the min in bf16 — a float32 min is within
+the mixed tolerance).  Float32 mode runs the SIMT float32 path.
 
 The same kernel also replaces ``_kernel_seg`` (wrapper
 ``global_matching_pallas_segmented``), the uniform-quota layout of
@@ -41,6 +41,8 @@ _EMPTY_DIST = 1e5
 _BN = 64          # bank rows per kernel step: a tile must hold a multiple
 _MAX_OBJ = 32     # per-row output block lives in shared memory
 _SEG_TILE = 1024  # uniform layout: quotas are multiples of this
+_TC_BM = 128      # query rows per CTA of the tensor-core (mixed) kernels
+_TC_MAX_C = 128   # their depth, C rounded up to a multiple of 16
 
 
 def prepare_operands(q: torch.Tensor, r: torch.Tensor, mixed: bool
@@ -54,6 +56,77 @@ def prepare_operands(q: torch.Tensor, r: torch.Tensor, mixed: bool
         q32 = q32.bfloat16().float()
         r32 = r32.bfloat16().float()
     return q32, q2, r32, r2
+
+
+def tc_steps_per_split(m: int, n_steps: int, sms: int) -> int:
+    """Bank steps per CTA of a tensor-core kernel.
+
+    A CTA holds 128 query rows, so the main path's M = 25,773 fills only
+    202 CTAs for 132 SMs.  The bank axis is cut into runs of steps, one
+    CTA each per query tile, until the grid holds about 8 CTAs per SM
+    (3 of them resident at a time), keeping at least 8 steps per CTA.
+    With more than one run the CTAs combine by an atomic min."""
+    tiles = -(-m // _TC_BM)
+    split = max(1, min(-(-8 * sms // tiles), n_steps // 8))
+    return -(-n_steps // split)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def tc_query(lib, q: torch.Tensor, n_obj: int, n_steps: int, stream: int):
+    """The query side of a tensor-core kernel, in one launch of
+    ``dist_prep_query``: bf16 rows ``[M, Cp]`` (C rounded up to a multiple
+    of 16, the MMA depth, with zeros: they change no distance), float32
+    norms ``[M]`` of the unrounded rows, and the ``[M, n_obj]`` output,
+    filled with +inf when the bank is split over several CTAs.  Returns
+    ``(qb, q2, out, steps_per_split)``."""
+    m, c = q.shape
+    cp = -(-c // 16) * 16
+    if cp > _TC_MAX_C:
+        raise ValueError(f"tensor-core kernels take C <= {_TC_MAX_C} (got {c})")
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    per = tc_steps_per_split(m, n_steps, sms)
+    qf = q.float().contiguous()
+    qb = torch.empty((m, cp), dtype=torch.bfloat16, device=q.device)
+    q2 = torch.empty((m,), dtype=torch.float32, device=q.device)
+    out = torch.empty((m, n_obj), dtype=torch.float32, device=q.device)
+    fn = lib.dist_prep_query
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    _cuda.check(fn(qf.data_ptr(), qb.data_ptr(), q2.data_ptr(),
+                   out.data_ptr() if per < n_steps else None, m, c, cp, n_obj,
+                   stream), "dist_prep_query")
+    return qb, q2, out, per
+
+
+def tc_bank(lib, r: torch.Tensor, rows: int, stream: int, perm=None,
+            bias=None, lab=None):
+    """The bank side of a tensor-core kernel, in one launch of
+    ``dist_prep_bank``: row ``n < R`` from source row ``perm[n]`` (``n``
+    without ``perm``) as bf16 ``-2 r`` ``[rows, Cp]``, its float32 norm
+    ``‖r‖² (+ bias)`` and (with ``lab``) its labels; rows past R are zero
+    with norm +inf, so they never win.  Returns ``(rb, r2, labs)``."""
+    n, c = r.shape
+    cp = -(-c // 16) * 16
+    rf = r.float().contiguous()
+    bf = None if bias is None else bias.float().contiguous()
+    lf = None if lab is None else lab.float().contiguous()
+    o = 0 if lab is None else lab.shape[1]
+    rb = torch.empty((rows, cp), dtype=torch.bfloat16, device=r.device)
+    r2 = torch.empty((rows,), dtype=torch.float32, device=r.device)
+    labs = None if lab is None else torch.empty((n, o), dtype=torch.float32,
+                                                device=r.device)
+    fn = lib.dist_prep_bank
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
+    _cuda.check(fn(rf.data_ptr(), _ptr(perm), _ptr(bf), -2.0, rb.data_ptr(),
+                   r2.data_ptr(), _ptr(lf), _ptr(labs), n, rows, c, cp, o,
+                   float("inf"), stream), "dist_prep_bank")
+    return rb, r2, labs
 
 
 def _check(name: str, q: torch.Tensor, r: torch.Tensor,
@@ -99,19 +172,33 @@ def _launch(q: torch.Tensor, r: torch.Tensor, bias: torch.Tensor,
     if tr % _BN or n_obj > _MAX_OBJ:
         raise ValueError(f"kernel needs tile rows % {_BN} == 0 and at most "
                          f"{_MAX_OBJ} objects (got {tr}, {n_obj})")
+    tobj = tile_obj.to(device=q.device, dtype=torch.int32).contiguous()
+    lib = _cuda.load("global_seg_map")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if mixed:
+        n_steps = p // _BN
+        qb, q2, out, per = tc_query(lib, q, n_obj, n_steps, stream)
+        rb, r2b, _ = tc_bank(lib, r, p, stream, bias=bias)
+        fn = lib.global_seg_map_mma_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+        err = fn(qb.data_ptr(), q2.data_ptr(), rb.data_ptr(), r2b.data_ptr(),
+                 tobj.data_ptr(), out.data_ptr(), m, n_steps, qb.shape[1],
+                 n_obj, tr // _BN, per, stream)
+        _cuda.check(err, "global_seg_map")
+        return out
     q32, q2, r32, r2 = prepare_operands(q, r, mixed)
     qt = q32.t().contiguous()
     rt = r32.t().contiguous()
     q2, r2b = q2.contiguous(), (r2 + bias.float()).contiguous()
-    tobj = tile_obj.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((m, n_obj), dtype=torch.float32, device=q.device)
-    lib = _cuda.load("global_seg_map")
     fn = lib.global_seg_map_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     err = fn(qt.data_ptr(), q2.data_ptr(), rt.data_ptr(), r2b.data_ptr(),
              tobj.data_ptr(), out.data_ptr(), m, p, c, n_obj, n_tiles, tr,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             stream)
     _cuda.check(err, "global_seg_map")
     return out
 

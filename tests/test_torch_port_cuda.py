@@ -7,7 +7,8 @@ not installed:
     python -m pytest --noconftest -q -m cuda tests/test_torch_port_cuda.py
 
 Tolerance: max |kernel − plain| / max(|plain|, 1) ≤ 1e-4 in float32
-(summation order only) and ≤ 4e-3 in mixed mode.
+(summation order only) and ≤ 4e-3 in mixed mode (the tensor-core path:
+the same bf16 operands, float32 accumulation in another order).
 """
 
 import pytest
@@ -82,6 +83,99 @@ def test_global_flat_min_matches_plain(dev, mixed, m, r, c, o):
     want = ops.global_flat_min_plain(q, emb, lab, mixed)
     assert got.shape == want.shape == (m, o)
     assert _rel_err(got, want) <= (4e-3 if mixed else 1e-4)
+
+
+def _flat_labels(kind, r, o, g, dev):
+    """Label matrices for B.3's one-hot route: one object only, all zero,
+    one-hot runs of uneven lengths in bank order (so sorted runs begin
+    mid-step) with object o-1 empty, or general rows (fractional,
+    two-hot, out of range) among one-hot and zero ones."""
+    lab = torch.zeros((r, o), device=dev)
+    if kind == "one_object":
+        lab[:, o // 2] = 1.0
+    elif kind == "runs":
+        ends = torch.randint(0, r, (max(o - 2, 1),), generator=g,
+                             device=dev).sort().values.tolist() + [r]
+        start = 0
+        for obj, end in enumerate(ends):
+            lab[start:end, obj % max(o - 1, 1)] = 1.0
+            start = end
+        lab[torch.rand((r,), generator=g, device=dev) < 0.1] = 0.0
+    elif kind == "general":
+        lab = torch.nn.functional.one_hot(
+            torch.randint(0, o, (r,), generator=g, device=dev), o).float()
+        lab[torch.rand((r,), generator=g, device=dev) < 0.2] = 0.0
+        lab[1] = 0.5
+        lab[2, : min(2, o)] = 1.0
+        lab[torch.rand((r,), generator=g, device=dev) < 0.02, 0] = 1.0
+        lab[3, 0] = 2.0
+    return lab
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("kind", ["one_object", "zero", "runs", "general"])
+@pytest.mark.parametrize("m,r,c,o", [(3001, 2500, 100, 11), (77, 1001, 12, 3),
+                                     (130, 700, 128, 17)])
+def test_global_flat_min_label_routes(dev, mixed, kind, m, r, c, o):
+    """B.3 with banks that exercise the mixed-mode route: a bank of one
+    object, of zero rows only, runs beginning mid-step with an empty
+    object, and general rows that force mixed steps."""
+    g = torch.Generator(device=dev).manual_seed(m + o)
+    q = torch.randn((m, c), generator=g, device=dev)
+    emb = torch.randn((r, c), generator=g, device=dev)
+    lab = _flat_labels(kind, r, o, g, dev)
+    got = ops.global_flat_min(q, emb, lab, mixed)
+    torch.cuda.synchronize()
+    want = ops.global_flat_min_plain(q, emb, lab, mixed)
+    assert _rel_err(got, want) <= (4e-3 if mixed else 1e-4)
+
+
+@pytest.mark.parametrize("kind", ["one_object", "zero", "runs", "general"])
+def test_flat_route_on_card_matches_cpu(dev, kind):
+    """``flat_route``'s kernels (keys, stable sort, tags) give the plain
+    version's permutation and step tags, R not a multiple of 64."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    lab = _flat_labels(kind, 3001, 11, g, dev)
+    perm, tags = ops.cuda_flat.flat_route(lab)
+    want_perm, want_tags = ops.cuda_flat.flat_route(lab.cpu())
+    assert torch.equal(perm.cpu(), want_perm)
+    assert torch.equal(tags.cpu(), want_tags)
+
+
+@pytest.mark.parametrize("kind", ["runs", "general"])
+def test_global_flat_min_mixed_ignores_row_order(dev, kind):
+    """B.3's mixed result on a row-permuted bank equals the unpermuted
+    one exactly: a min does not depend on row order, and no pair's
+    distance depends on where its row lies."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((1000, 100), generator=g, device=dev)
+    emb = torch.randn((5000, 100), generator=g, device=dev)
+    lab = _flat_labels(kind, 5000, 11, g, dev)
+    perm = torch.randperm(5000, generator=g, device=dev)
+    got = ops.global_flat_min(q, emb[perm], lab[perm], True)
+    want = ops.global_flat_min(q, emb, lab, True)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 3, 16])
+def test_global_seg_map_tile_rows(dev, mixed, k):
+    """Kernel 1 at tile sizes 64·k, with tiles of no object (-1), one
+    object owning no tile, filler rows biased by 5e4, and M not a
+    multiple of 128."""
+    g = torch.Generator(device=dev).manual_seed(k)
+    m, c, o, n_tiles = 1000, 100, 6, 40
+    tile_obj = torch.randint(-1, o - 1, (n_tiles,), generator=g,
+                             device=dev).int()
+    p = n_tiles * 64 * k
+    r = torch.randn((p, c), generator=g, device=dev)
+    bias = (torch.rand((p,), generator=g, device=dev) < 0.1).float() * 5e4
+    q = torch.randn((m, c), generator=g, device=dev)
+    got = ops.global_seg_map(q, r, bias, tile_obj, o, mixed)
+    torch.cuda.synchronize()
+    want = ops.global_seg_map_plain(q, r, bias, tile_obj, o, mixed)
+    assert _rel_err(got, want) <= (4e-3 if mixed else 1e-4)
+    assert (got[:, o - 1] == 1e5).all()
 
 
 @pytest.mark.parametrize("mixed", [False, True])
@@ -169,6 +263,22 @@ def test_evaluator_lockstep_on_card_matches_cpu(dev, layout):
     compacted banks (rows, labels, tile map) are identical, and the
     layout's global kernel launches on every frame after the first."""
     cfg = parity_config(layout)
+    kernel = getattr(ops, _GLOBAL_KERNEL[layout])
+    n0 = kernel.launches
+    res = lockstep_masks(cfg, _make_model(cfg), _make_seq(), parity_scores)
+    assert kernel.launches - n0 == 5
+    assert len(res.agree) == 5 and min(res.agree) >= 0.999, res.agree
+    assert res.max_dlogit < 1e-2 and res.max_demb < 1e-3
+    assert len(res.banks_equal) == 3 and all(res.banks_equal)
+
+
+@pytest.mark.parametrize("layout", sorted(_GLOBAL_KERNEL))
+def test_evaluator_lockstep_mixed_on_card_matches_cpu(dev, layout):
+    """As the lock-step test above, with mixed matching: the global
+    kernels' tensor-core paths on the card against the plain mixed
+    versions on the CPU, in float32 compute with TF32 off for
+    convolutions too."""
+    cfg = parity_config(layout, matching="mixed")
     kernel = getattr(ops, _GLOBAL_KERNEL[layout])
     n0 = kernel.launches
     res = lockstep_masks(cfg, _make_model(cfg), _make_seq(), parity_scores)

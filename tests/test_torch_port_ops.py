@@ -424,3 +424,103 @@ def test_flat_and_uniform_wrappers_take_plain_path_only_on_cpu():
     with pytest.raises(ValueError, match="one device expected"):
         tops.global_seg(torch.zeros((4, 8)), torch.zeros((2048, 8)),
                         torch.empty(2048, **meta), n_obj=2)
+
+
+def _route_bank(rng, kind, r=700, c=12, o=5):
+    """A flat bank of ``r`` rows (not a multiple of 64) for B.3's one-hot
+    route: one-hot rows of objects 0-3 (object 4 has none) and all-zero
+    rows; ``general`` adds fractional, two-hot and out-of-range rows."""
+    emb = rng.standard_normal((r, c)).astype(np.float32)
+    lab = np.eye(o, dtype=np.float32)[rng.integers(0, o - 1, r)]
+    lab[rng.random(r) < 0.2] = 0.0
+    if kind == "general":
+        lab[3] = 0.5
+        lab[10, :2] = 1.0
+        lab[rng.random(r) < 0.03] = [0.0, 1.0, 1.0, 0.0, 0.0]
+        lab[20, 1] = 2.0
+    return emb, lab
+
+
+def _routed_min(q, emb, lab, mixed):
+    """B.3's mixed-mode kernel routing in plain PyTorch: the bank in
+    ``flat_route``'s order, 64-row steps; a pure step folds its min of d
+    into A and into B of its object, a mixed step takes the penalised min
+    of its rows into B; the result is min(B_o, A + 5e4)."""
+    from rvos_tpu_torch.ops.cuda_flat import MIXED, flat_route
+    from rvos_tpu_torch.ops.cuda_matching import prepare_operands
+    q32, q2, r32, r2 = prepare_operands(q, emb, mixed)
+    d = q2[:, None] + r2[None, :] - 2.0 * (q32 @ r32.T)
+    perm, tags = flat_route(lab)
+    ds, ls = d[:, perm], lab[perm]
+    a = torch.full((q.shape[0],), float("inf"))
+    b = torch.full((q.shape[0], lab.shape[1]), float("inf"))
+    for s, tag in enumerate(tags.tolist()):
+        cols = slice(s * 64, (s + 1) * 64)
+        if tag == MIXED:
+            pen = (1.0 - ls[cols].float()) * 5e4
+            b = torch.minimum(b, (ds[:, cols, None] + pen[None]).amin(1))
+        else:
+            v = ds[:, cols].amin(1)
+            a = torch.minimum(a, v)
+            if tag >= 0:
+                b[:, tag] = torch.minimum(b[:, tag], v)
+    return torch.minimum(b, a[:, None] + 5e4)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("kind", ["onehot", "general"])
+def test_flat_route_min_equals_plain(kind, mixed, rng):
+    """The per-object min over the label-sorted bank, taken step by step
+    as the mixed-mode kernel routes it (pure steps: min(B_o, A + 5e4);
+    mixed steps: the penalised min), equals ``global_flat_min_plain`` on
+    the unsorted bank exactly, for one-hot, zero, fractional, two-hot and
+    out-of-range label rows."""
+    emb, lab = _route_bank(rng, kind)
+    q = _t(rng.standard_normal((30, emb.shape[1])).astype(np.float32))
+    got = _routed_min(q, _t(emb), _t(lab), mixed)
+    want = tops.global_flat_min_plain(q, _t(emb), _t(lab), mixed)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["onehot", "general"])
+def test_flat_route_sorts_stably_and_tags_mixed_steps(kind, rng):
+    """``flat_route``: a stable sort by key (object, -1 for all-zero rows,
+    O for general rows); a step is tagged by its key only when all its
+    real rows share that key and it is not general, else MIXED — so
+    with one-hot-or-zero labels at most O + 1 steps (one per key
+    boundary) are mixed."""
+    from rvos_tpu_torch.ops.cuda_flat import MIXED, flat_route
+    emb, lab = _route_bank(rng, kind)
+    r, o = lab.shape
+    one = lab == 1.0
+    clean = ((lab == 0.0) | one).all(1) & (one.sum(1) <= 1)
+    key = np.where(clean, np.where(one.any(1), one.argmax(1), -1), o)
+    perm, tags = flat_route(_t(lab))
+    perm = perm.numpy()
+    np.testing.assert_array_equal(perm, np.argsort(key, kind="stable"))
+    ks = key[perm]
+    assert tags.dtype == torch.int32 and tags.shape == (-(-r // 64),)
+    for s, tag in enumerate(tags.tolist()):
+        step = set(ks[s * 64:(s + 1) * 64].tolist())
+        if len(step) > 1 or o in step:
+            assert tag == MIXED, (s, step)
+        else:
+            assert tag == step.pop(), s
+    if kind == "onehot":
+        assert (tags == MIXED).sum() <= o + 1
+    else:
+        assert (tags == MIXED).sum() >= 2      # the general rows' steps
+
+
+@pytest.mark.parametrize("m,n_steps", [(25773, 3222), (25773, 256),
+                                       (25773, 176), (64, 5), (3001, 40)])
+def test_tc_steps_per_split(m, n_steps):
+    """The bank split of the tensor-core kernels on a 132-SM card: the
+    runs cover every step, none is empty, each holds at least 8 steps
+    unless the bank is shorter, and the grid stays near 8 CTAs per SM."""
+    from rvos_tpu_torch.ops.cuda_matching import tc_steps_per_split
+    per = tc_steps_per_split(m, n_steps, 132)
+    runs = -(-n_steps // per)
+    assert (runs - 1) * per < n_steps <= runs * per
+    assert per >= min(8, n_steps)
+    assert runs * -(-m // 128) <= 8 * 132 + -(-m // 128)
