@@ -8,13 +8,14 @@ Phases, one line each (a failing phase raises and exits non-zero):
 1. the card (``nvidia-smi`` name and power limit), the build of the
    three CUDA sources in ``rvos_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together) and the count of tensor-core instructions
-   (``HMMA``/``HGMMA`` in ``cuobjdump -sass``) in each library: the two
-   global-matching libraries must have some;
+   (``HMMA``/``HGMMA`` in ``cuobjdump -sass``) in each library: every
+   library must have some;
 2. each kernel against its plain PyTorch version at the shapes of the
    path that runs it, in float32 (max |Δ|/max(|d|, 1) ≤ 1e-4) and mixed
    precision (≤ 4e-3), with its time beside the plain version's, its
-   bound and, for the global kernels, the cross-term ``torch.matmul`` as
-   a floor: kernel 1 (B.1) at the occupancy bank, kernel 1's uniform
+   bound and a library yardstick (the cross term as ``torch.matmul``:
+   ``q @ rᵀ`` for the global kernels, the window's banded product for
+   kernel 2): kernel 1 (B.1) at the occupancy bank, kernel 1's uniform
    entry (B.2) at the uniform-quota bank, kernel 3 (B.3) at no cap and
    at the fg-union bank, kernel 2 (B.4);
 3. the main path: the streaming evaluator with the full
@@ -224,9 +225,30 @@ def check_flat(torch, ops, shapes, mixed: bool, fg_union: bool):
         plain_reps=1, reps=10 if fg_union else 3, live=(live, 2.5e4))
 
 
+def _band_cross(torch, x, ys, a_max, atrous):
+    """The window's cross terms as one ``torch.matmul`` in the operands'
+    type: each query row [w, C] against the w + 2·pad columns of each of
+    its K window rows, read from the zero-padded previous frames through a
+    strided view (the pad and any copy the product makes included): the
+    library call beside kernel 2."""
+    s_n, h, w, c = ys.shape
+    pad, k = a_max * atrous, 2 * a_max + 1
+
+    def run():
+        yp = torch.nn.functional.pad(ys, (0, 0, pad, pad, pad, pad))
+        st = yp.stride()
+        win = yp.as_strided((s_n, h, k, w + 2 * pad, c),
+                            (st[0], st[1], st[1] * atrous, st[2], st[3]))
+        return torch.matmul(x[None, :, None], win.transpose(-1, -2))
+    return run
+
+
 def check_local(torch, ops, shapes, mixed: bool):
     """Kernel 2 at the main path's shapes: the 2×-downsampled grid, both
-    previous embeddings in one launch, 11 object channels."""
+    previous embeddings in one launch, 11 object channels.  Its bound
+    counts the cross term at the operands' rate and, at the float32
+    rate, the epilogue's min into A and into B_o per in-frame (offset,
+    pixel) pair of each previous frame (2·S·pairs)."""
     h, w, c, o = shapes["lh"], shapes["lw"], shapes["c"], shapes["o"]
     radii, atrous = shapes["radii"], shapes["atrous"]
     dev = "cuda"
@@ -244,9 +266,11 @@ def check_local(torch, ops, shapes, mixed: bool):
     return _measure(
         torch, "local_match", mixed,
         lambda: ops.local_match(x, ys, onehot, radii, atrous),
-        lambda: ops.local_match_plain(x, ys, onehot, radii, atrous), None,
+        lambda: ops.local_match_plain(x, ys, onehot, radii, atrous),
+        _band_cross(torch, x, ys, a_max, atrous),
         3 * h * w * c * elt + h * w * o * 4 + 2 * h * w * o * len(radii) * 4,
-        2.0 * 2 * c * pairs, [2, h, w, c, o, len(radii)], plain_reps=1)
+        2.0 * 2 * c * pairs, [2, h, w, c, o, len(radii)],
+        f32_ops=2.0 * 2 * pairs, plain_reps=1)
 
 
 # the kernel wrapper that each bank layout's global stream launches
@@ -331,7 +355,7 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda} | built "
           f"{len(paths)} kernels in {built_s:.1f} s | HMMA/HGMMA in SASS "
           f"{mma} | " + " ; ".join(ptxas), flush=True)
-    for name in ("global_seg_map", "global_flat_match"):
+    for name in paths:
         if not mma[name]:
             raise AssertionError(f"{name}: no tensor-core instruction in SASS")
 

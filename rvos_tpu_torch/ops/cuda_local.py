@@ -16,10 +16,11 @@ local stream runs through this kernel.  Both previous embeddings of a
 frame (pixel and proxy-reconstructed, ``S = 2``) go in one launch.
 
 What bounds it on the H100, and what the design does about it: see
-``csrc/local_match.cu``.  ``local_match`` launches that kernel for CUDA
-tensors (or raises) and runs ``local_match_plain`` for CPU tensors;
-``local_match.launches`` counts kernel launches.  The labels must be
-one-hot (at most one object per pixel), as every caller's are.
+``csrc/local_match.cu``.  ``local_match`` launches the operand
+preparation and that kernel for CUDA tensors (or raises) and runs
+``local_match_plain`` for CPU tensors; ``local_match.launches`` counts
+the matching kernel's launches.  The labels must be one-hot (at most one
+object per pixel), as every caller's are.
 """
 
 from __future__ import annotations
@@ -35,8 +36,15 @@ from . import _cuda
 
 _PEN = 5e4
 _EMPTY_DIST = 1e5
-_MAX_C = 128      # four channels per lane of a warp
-_MAX_OBJ = 32     # one object per lane
+_MAX_C = 128      # eight 16-deep tensor-core slices
+_MAX_OBJ = 32     # one label id per lane of the preparation's warp
+_MAX_PAD = 15     # window reach in pixels: a warp's band is <= 48 columns
+_MAX_RADII = 8
+# CTAs per query tile, by mode (float32, bf16), each over a part of the
+# window rows; their results meet in an exact atomic min.  Two cut the
+# tensor-core kernel's time by a quarter at the main path's shapes (more
+# warps per SM); the float32 kernel is faster with one (PERF.md §6).
+GROUPS = {False: 1, True: 2}
 
 
 def _window(radii: Sequence[int], atrous_rate: int
@@ -82,17 +90,55 @@ def local_match_plain(x: torch.Tensor, ys: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=64)
-def _radii_tensors(order: Tuple[int, ...], device: str
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _window_params(radii: Tuple[int, ...], atrous_rate: int):
+    """The kernel's window parameters as a C int array: pad, atrous,
+    a_max, n_asc, n_r, the band of each Chebyshev distance 0 ... _MAX_PAD
+    (window steps; the index of the smallest radius in the ascending list
+    that holds it) and the band of each output channel."""
+    order, a_max, pad_d = _window(radii, atrous_rate)
+    if pad_d > _MAX_PAD or len(order) > _MAX_RADII:
+        raise ValueError(f"kernel takes a window reach <= {_MAX_PAD} pixels "
+                         f"and <= {_MAX_RADII} radii (got {pad_d}, "
+                         f"{len(order)})")
     asc = sorted(set(order))
-    return (torch.tensor(asc, dtype=torch.int32, device=device),
-            torch.tensor(order, dtype=torch.int32, device=device))
+    band = [next((b for b, r in enumerate(asc) if r >= cd), 0)
+            for cd in range(_MAX_PAD + 1)]
+    ch_band = [asc.index(r) for r in order]
+    vals = ([pad_d, atrous_rate, a_max, len(asc), len(order)] + band
+            + ch_band + [0] * (_MAX_RADII - len(order)))
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+@functools.lru_cache(maxsize=1)
+def _entry_points():
+    """The library's two C entry points, typed once (the library is built
+    at first use)."""
+    lib = _cuda.load("local_match")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    prep = lib.local_prep_launch
+    prep.restype = i32
+    prep.argtypes = ([vp] * 3 + [i32] + [vp] * 3 + [i32] + [vp] * 4
+                     + [ctypes.c_longlong] + [i32] * 6 + [vp])
+    kernel = lib.local_match_launch
+    kernel.restype = i32
+    kernel.argtypes = [vp] * 5 + [i32] * 8 + [vp]
+    return prep, kernel
+
+
+def _strides(t: torch.Tensor):
+    return (ctypes.c_longlong * t.dim())(*t.stride())
 
 
 def local_match(x: torch.Tensor, ys: torch.Tensor, onehot: torch.Tensor,
                 radii: Sequence[int], atrous_rate: int = 1) -> torch.Tensor:
     """x [h, w, C]; ys [S, h, w, C]; onehot [h, w, O] → raw multi-radius
-    masked mins ``[S, h, w, O, n_r]`` float32."""
+    masked mins ``[S, h, w, O, n_r]`` float32.
+
+    On CUDA tensors: two launches, the operand preparation and the kernel
+    (bf16 x and ys: tensor cores; float32: SIMT float32), reading x, ys
+    and onehot through their strides; the kernel takes C <= 128, O <= 32,
+    a window reach ``radii[-1] - radii[-1] % atrous_rate`` <= 15 pixels
+    and <= 8 radii, and raises on anything else."""
     s_n, h, w, c = ys.shape
     o = onehot.shape[-1]
     if x.shape != (h, w, c) or onehot.shape[:2] != (h, w):
@@ -108,26 +154,37 @@ def local_match(x: torch.Tensor, ys: torch.Tensor, onehot: torch.Tensor,
     if c > _MAX_C or o > _MAX_OBJ:
         raise ValueError(f"kernel takes C <= {_MAX_C} and at most "
                          f"{_MAX_OBJ} objects (got {c}, {o})")
-    order, _, _ = _window(radii, atrous_rate)
-    x32 = x.float().contiguous()
-    y32 = ys.float().contiguous()
-    x2 = x32.square().sum(-1).contiguous()
-    y2 = y32.square().sum(-1).contiguous()
-    oh = onehot.float()
-    lab = torch.where(oh.amax(-1) > 0.5, oh.argmax(-1),
-                      torch.full_like(oh[..., 0], -1, dtype=torch.long))
-    lab = lab.to(torch.int32).contiguous()
-    asc_t, order_t = _radii_tensors(tuple(order), str(x.device))
-    out = torch.empty((s_n, len(order), o, h, w), dtype=torch.float32,
+    if x.dtype != ys.dtype or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"kernel takes float32 or bfloat16 x and ys of one "
+                         f"type (got {x.dtype}, {ys.dtype})")
+    if onehot.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"kernel takes float32 or bfloat16 labels (got "
+                         f"{onehot.dtype})")
+    win = _window_params(tuple(int(r) for r in radii), int(atrous_rate))
+    n_r = win[4]
+    bf16 = x.dtype == torch.bfloat16
+    cp = -(-c // 16) * 16 if bf16 else c
+    n_rows = (1 + s_n) * h * w
+    esize = 2 if bf16 else 4
+    rows_bytes = -(-n_rows * cp * esize // 16) * 16
+    scratch = torch.empty(rows_bytes + n_rows * 4 + h * w * 4,
+                          dtype=torch.uint8, device=x.device)
+    rows_ptr = scratch.data_ptr()
+    norms_ptr = rows_ptr + rows_bytes
+    lab_ptr = norms_ptr + n_rows * 4
+    out = torch.empty((s_n, n_r, o, h, w), dtype=torch.float32,
                       device=x.device)
-    lib = _cuda.load("local_match")
-    fn = lib.local_match_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    err = fn(x32.data_ptr(), x2.data_ptr(), y32.data_ptr(), y2.data_ptr(),
-             lab.data_ptr(), asc_t.data_ptr(), order_t.data_ptr(),
-             out.data_ptr(), s_n, h, w, c, o, asc_t.numel(), len(order),
-             atrous_rate, torch.cuda.current_stream(x.device).cuda_stream)
+    groups = min(GROUPS[bf16], 2 * win[2] + 1)
+    prep, kernel = _entry_points()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = prep(x.data_ptr(), ys.data_ptr(), onehot.data_ptr(),
+               int(onehot.dtype == torch.bfloat16), _strides(x),
+               _strides(ys), _strides(onehot), int(bf16), rows_ptr,
+               norms_ptr, lab_ptr, out.data_ptr() if groups > 1 else None,
+               out.numel(), s_n, h, w, c, cp, o, stream)
+    _cuda.check(err, "local_prep")
+    err = kernel(rows_ptr, norms_ptr, lab_ptr, out.data_ptr(), win, s_n, h,
+                 w, c, cp, o, int(bf16), groups, stream)
     _cuda.check(err, "local_match")
     local_match.launches += 1
     return out.permute(0, 3, 4, 2, 1)

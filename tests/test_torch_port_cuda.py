@@ -203,24 +203,83 @@ def test_global_seg_matches_plain(dev, mixed, m, c, o):
     assert _rel_err(got, want) <= (4e-3 if mixed else 1e-4)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hw,radii,atrous", [((31, 54), (2, 4, 6), 1),
-                                             ((13, 15), (1, 2, 3), 2),
-                                             ((61, 107), (2, 4, 6, 8, 10, 12), 1)])
-def test_local_match_matches_plain(dev, dtype, hw, radii, atrous):
-    g = torch.Generator(device=dev).manual_seed(hw[0])
+_RADII = (2, 4, 6, 8, 10, 12)
+
+
+def _local_inputs(dev, dtype, hw, c, o, labels="random"):
+    """x, ys (S = 2) and a one-hot map with unlabelled pixels ("random"),
+    none labelled ("none") or one object everywhere ("one")."""
+    g = torch.Generator(device=dev).manual_seed(hw[0] + c)
     h, w = hw
-    x = torch.randn((h, w, 100), generator=g, device=dev).to(dtype)
-    ys = torch.randn((2, h, w, 100), generator=g, device=dev).to(dtype)
-    lab = torch.randint(-1, 11, (h, w), generator=g, device=dev)
-    onehot = (lab[..., None] == torch.arange(11, device=dev)).float()
+    x = torch.randn((h, w, c), generator=g, device=dev).to(dtype)
+    ys = torch.randn((2, h, w, c), generator=g, device=dev).to(dtype)
+    lab = torch.randint(-1, o, (h, w), generator=g, device=dev)
+    if labels == "none":
+        lab[:] = -1
+    elif labels == "one":
+        lab[:] = o - 1
+    onehot = (lab[..., None] == torch.arange(o, device=dev)).float()
+    return x, ys, onehot
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,radii,atrous,c,o", [
+    ((31, 54), (2, 4, 6), 1, 100, 11), ((13, 15), (1, 2, 3), 2, 100, 11),
+    ((61, 107), _RADII, 1, 100, 11), ((61, 107), _RADII, 1, 20, 1),
+    ((13, 15), (1, 2, 3), 2, 128, 32), ((61, 15), _RADII, 1, 128, 32),
+    ((20, 130), (3, 5, 7), 2, 20, 11)])
+def test_local_match_matches_plain(dev, dtype, hw, radii, atrous, c, o):
+    """Kernel 2 against its plain version: widths that are not a multiple
+    of the 64-pixel query tile (107, 130) or narrower than one (15), a
+    frame narrower than the window (61×15 at reach 12), atrous 2, C ∈
+    {20, 100, 128}, O ∈ {1, 11, 32}; the counter counts one launch."""
+    x, ys, onehot = _local_inputs(dev, dtype, hw, c, o)
     n0 = ops.local_match.launches
     got = ops.local_match(x, ys, onehot, radii, atrous)
     torch.cuda.synchronize()
     assert ops.local_match.launches == n0 + 1
     want = ops.local_match_plain(x, ys, onehot, radii, atrous)
-    assert got.shape == want.shape == (2, h, w, 11, len(radii))
+    assert got.shape == want.shape == (2,) + hw + (o, len(radii))
     assert _rel_err(got, want) <= (4e-3 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("labels", ["none", "one"])
+def test_local_match_label_maps(dev, dtype, labels):
+    """A label map with no labelled pixel (every channel reads A + 5e4
+    or 1e5) and one with a single object everywhere."""
+    x, ys, onehot = _local_inputs(dev, dtype, (29, 70), 100, 11, labels)
+    got = ops.local_match(x, ys, onehot, _RADII)
+    torch.cuda.synchronize()
+    want = ops.local_match_plain(x, ys, onehot, _RADII)
+    assert _rel_err(got, want) <= (4e-3 if dtype == torch.bfloat16 else 1e-4)
+    live = (want < 2.5e4).any(-1).any(0).any(0).any(0)
+    assert live.tolist() == [labels == "one" and k == 10 for k in range(11)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_local_match_is_deterministic(dev, dtype):
+    """The same call twice gives the same bits: the shared-memory mins do
+    not depend on the order of their updates."""
+    x, ys, onehot = _local_inputs(dev, dtype, (61, 107), 100, 11)
+    a = ops.local_match(x, ys, onehot, _RADII)
+    b = ops.local_match(x, ys, onehot, _RADII)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b), (a - b).abs().max().item()
+
+
+def test_local_match_strided_bf16_labels(dev):
+    """The main path's operands: a query that is a permuted view (the
+    resize's NCHW output) and a bf16 label map, read through their strides
+    without a copy, against the plain version on contiguous float32
+    copies."""
+    x, ys, onehot = _local_inputs(dev, torch.bfloat16, (61, 107), 100, 11)
+    xv = x.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    assert not xv.is_contiguous()
+    got = ops.local_match(xv, ys, onehot.bfloat16(), _RADII)
+    torch.cuda.synchronize()
+    want = ops.local_match_plain(x, ys, onehot, _RADII)
+    assert _rel_err(got, want) <= 4e-3
 
 
 # the kernel each bank layout's global stream launches

@@ -3,7 +3,7 @@
 Inputs are made with numpy from a seed and fed to both sides; the port
 runs on the CPU, where each kernel wrapper runs its plain PyTorch
 version.  Where the JAX function reaches a Pallas kernel it runs in
-interpret mode.  Parity mode (float32) throughout.
+interpret mode.  Parity mode (float32) unless a test says otherwise.
 """
 
 import jax
@@ -286,6 +286,98 @@ def test_local_match_plain_matches_pallas(atrous, rng):
         # live distances to 1e-3; penalised ones (≥ 5e4) also differ by
         # float32 rounding at their magnitude, hence the 1e-6 rtol
         np.testing.assert_allclose(got[s], want, atol=1e-3, rtol=1e-6)
+
+
+def test_local_match_window_tables():
+    """Kernel 2's window parameters: each Chebyshev distance (window
+    steps) maps to the smallest radius of the ascending list that holds
+    it, each output channel (full radius first) to its radius' band, and
+    a window past the kernel's reach is refused."""
+    from rvos_tpu_torch.ops import cuda_local
+    win = list(cuda_local._window_params((2, 4, 6, 8, 10, 12), 1))
+    pad, atrous, a_max, n_asc, n_r = win[:5]
+    band, ch_band = win[5:21], win[21:21 + n_r]
+    assert (pad, atrous, a_max, n_asc, n_r) == (12, 1, 12, 6, 6)
+    assert band[:13] == [0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5]
+    assert ch_band == [5, 0, 1, 2, 3, 4]
+    win = list(cuda_local._window_params((1, 2, 3), 2))
+    assert win[:5] == [2, 2, 1, 2, 3] and win[5:7] == [0, 1]
+    assert win[21:24] == [1, 0, 1]
+    with pytest.raises(ValueError, match="window reach"):
+        cuda_local._window_params((2, 16), 1)
+
+
+def _window_max(v, a_max):
+    """max over the (2 a_max + 1)² in-frame window offsets of v(offset):
+    ``v`` maps (dy, dx) to an [S, h, w] array (-inf where out of frame)."""
+    return np.max([v(dy, dx) for dy in range(-a_max, a_max + 1)
+                   for dx in range(-a_max, a_max + 1)], axis=0)
+
+
+def test_local_match_mixed_semantics_against_both_tpu_routes(rng):
+    """Mixed mode of kernel 2 is "bf16 cross, f32 norms" (the config's
+    definition): with bf16 x and ys the port computes every distance in
+    float32 from the bf16 values, products exact.  Neither TPU route of
+    the JAX package does quite that, and each is held here within its own
+    rounding, live entries only (penalised ones squash to 1 on every
+    route):
+
+    * the Pallas kernel (interpret mode) rounds each product x_c·y_c and
+      ‖y‖² (its side-band lane) to bf16, whose unit roundoff is 2⁻⁸ (8
+      significant bits): per offset |Δd| ≤ 2⁻⁸ (‖y′‖² + 2 x·y′) (inputs
+      ≥ 0), so a min differs by at most the window's largest such term;
+    * the XLA scan in bf16 rounds ‖x‖², ‖y′‖², the cross term, their sum
+      and the difference to bf16: |Δd| ≤ 2⁻⁸ (3 (‖x‖² + ‖y′‖²) + 2 x·y′).
+
+    Both bounds get 1 % slack for second-order terms.  The port equals
+    the Pallas kernel fed float32 copies of the same bf16 values (1e-3)."""
+    h, w, c, o = 13, 15, 100, 3
+    radii, a_max = (1, 2, 3), 3
+    x = torch.from_numpy(np.maximum(rng.standard_normal((h, w, c)), 0)
+                         .astype(np.float32)).bfloat16()
+    ys = torch.from_numpy(np.maximum(rng.standard_normal((2, h, w, c)), 0)
+                          .astype(np.float32)).bfloat16()
+    onehot = np.eye(o, dtype=np.float32)[rng.integers(0, o, (h, w))]
+    onehot[rng.random((h, w)) < 0.1] = 0.0
+    xf, yf = x.float().numpy(), ys.float().numpy()
+    got = tops.local_match(x, ys, _t(onehot), radii).numpy()
+
+    def pallas(dtype):
+        return np.stack([np.asarray(local_matching_pallas(
+            jnp.asarray(xf, dtype), jnp.asarray(yf[s], dtype),
+            jnp.asarray(onehot), radii, 1, interpret=True)) for s in range(2)])
+
+    pal, pal32 = pallas(jnp.bfloat16), pallas(jnp.float32)
+    scan = np.asarray(jm._local_matching_online_stacked(
+        jnp.asarray(xf, jnp.bfloat16), jnp.asarray(yf, jnp.bfloat16),
+        jnp.asarray(onehot), radii, a_max, 2 * a_max + 1, 1, a_max))
+    live = got < 2.5e4
+    for ref in (pal, pal32, scan):
+        np.testing.assert_array_equal(ref < 2.5e4, live)
+    np.testing.assert_allclose(got[live], pal32[live], atol=1e-3)
+
+    x2 = (xf ** 2).sum(-1)
+    yp = np.pad(yf, ((0, 0), (a_max, a_max), (a_max, a_max), (0, 0)))
+    y2p = np.pad((yf ** 2).sum(-1), ((0, 0), (a_max, a_max), (a_max, a_max)),
+                 constant_values=-np.inf)
+
+    def term(wy, wx):
+        def v(dy, dx):
+            sl = (slice(None), slice(a_max + dy, a_max + dy + h),
+                  slice(a_max + dx, a_max + dx + w))
+            xy = (yp[sl] * xf).sum(-1)
+            return wy * y2p[sl] + wx * x2 + 2.0 * xy
+        # [S, h, w] → broadcast over objects and radii
+        return _window_max(v, a_max)[..., None, None] * 2.0 ** -8 * 1.01
+
+    bounds = {"pallas": (pal, term(1.0, 0.0)), "scan": (scan, term(3.0, 3.0))}
+    for name, (ref, bound) in bounds.items():
+        err = np.abs(got - ref)
+        bound = np.broadcast_to(bound, got.shape)
+        assert (err[live] <= bound[live] + 1e-3).all(), (
+            name, err[live].max(), (err - bound)[live].max())
+        # the difference is real: the routes do not compute the port's values
+        assert err[live].max() > 1e-2, name
 
 
 def test_local_matching_bank_stacked_matches_jax(rng):
