@@ -14,7 +14,7 @@ Phases, one line each (a failing phase raises and exits non-zero):
    path that runs it, in float32 (max |Δ|/max(|d|, 1) ≤ 1e-4) and mixed
    precision (≤ 4e-3), with its time beside the plain version's, its
    bound and a library yardstick (the cross term as ``torch.matmul``:
-   ``q @ rᵀ`` for the global kernels, the window's banded product for
+   ``q @ rᵀ`` for the global kernels, each pixel's K×K window for
    kernel 2): kernel 1 (B.1) at the occupancy bank, kernel 1's uniform
    entry (B.2) at the uniform-quota bank, kernel 3 (B.3) at no cap and
    at the fg-union bank, kernel 2 (B.4);
@@ -227,19 +227,21 @@ def check_flat(torch, ops, shapes, mixed: bool, fg_union: bool):
 
 def _band_cross(torch, x, ys, a_max, atrous):
     """The window's cross terms as one ``torch.matmul`` in the operands'
-    type: each query row [w, C] against the w + 2·pad columns of each of
-    its K window rows, read from the zero-padded previous frames through a
-    strided view (the pad and any copy the product makes included): the
-    library call beside kernel 2."""
+    type: each pixel's own K×K window [K, K, C], read from the zero-padded
+    previous frames through a strided view [S, h, w, K, K, C], against its
+    query row (the products the window needs, no more; the pad and the
+    copy the product makes of the view included): the library call beside
+    kernel 2."""
     s_n, h, w, c = ys.shape
     pad, k = a_max * atrous, 2 * a_max + 1
 
     def run():
         yp = torch.nn.functional.pad(ys, (0, 0, pad, pad, pad, pad))
         st = yp.stride()
-        win = yp.as_strided((s_n, h, k, w + 2 * pad, c),
-                            (st[0], st[1], st[1] * atrous, st[2], st[3]))
-        return torch.matmul(x[None, :, None], win.transpose(-1, -2))
+        win = yp.as_strided((s_n, h, w, k, k, c),
+                            (st[0], st[1], st[2], st[1] * atrous,
+                             st[2] * atrous, st[3]))
+        return torch.matmul(win, x[:, :, None, :, None])
     return run
 
 

@@ -1,15 +1,14 @@
 """Device time of kernel 2 (``ops.local_match``) at the main path's shapes.
 
-    python -m rvos_tpu_torch.cli.kernel2_times [--groups 1 2 3 5] [--calls 20]
+    python -m rvos_tpu_torch.cli.kernel2_times [--calls 20]
 
-For each mode (float32 and bf16 operands) and each count of CTAs per
-query tile (``ops.cuda_local.GROUPS``, each CTA over a part of the window
-rows), runs the wrapper ``--calls`` times under ``torch.profiler`` and
-prints the device µs per call of each of its two kernels (operand
-preparation, matching) beside the wrapper's time over CUDA events.  The
-shapes are ``chip_smoke.py`` phase 2's: a 61×107 grid, C = 100, O = 11,
-S = 2, radii 2…12, ReLU'd normal inputs from a seed.  The card's name and
-power limit head the output.  Needs an NVIDIA GPU.
+For each mode (float32 and bf16 operands), runs the wrapper ``--calls``
+times under ``torch.profiler`` and prints the device µs per call of each
+of its two kernels (operand preparation, matching) beside the wrapper's
+time over CUDA events.  The shapes are ``chip_smoke.py`` phase 2's: a
+61×107 grid, C = 100, O = 11, S = 2, radii 2…12, ReLU'd normal inputs
+from a seed.  The card's name and power limit head the output.  Needs an
+NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -21,14 +20,13 @@ import sys
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--groups", type=int, nargs="+", default=[1, 2, 3, 5])
     p.add_argument("--calls", type=int, default=20)
     args = p.parse_args(argv)
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ..ops import cuda_local
+    from ..ops import local_match
 
     if not torch.cuda.is_available():
         print("kernel2_times: no CUDA device visible", file=sys.stderr)
@@ -41,46 +39,39 @@ def main(argv=None) -> int:
     g = torch.Generator(device="cuda").manual_seed(2)
     onehot = torch.nn.functional.one_hot(
         torch.randint(0, 4, (h, w), generator=g, device="cuda"), o).float()
-    default = dict(cuda_local.GROUPS)
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.relu(torch.randn((h, w, c), generator=g, device="cuda"))
         ys = torch.relu(torch.randn((2, h, w, c), generator=g, device="cuda"))
         x, ys = x.to(dtype), ys.to(dtype)
-        bf16 = dtype == torch.bfloat16
-        for groups in args.groups:
-            cuda_local.GROUPS[bf16] = groups
 
-            def call():
-                cuda_local.local_match(x, ys, onehot, radii)
-            for _ in range(3):
-                call()
-            torch.cuda.synchronize()
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
+        def call():
+            local_match(x, ys, onehot, radii)
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(args.calls):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        wrapper_ms = start.elapsed_time(end) / args.calls
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(args.calls):
                 call()
-            end.record()
             torch.cuda.synchronize()
-            wrapper_ms = start.elapsed_time(end) / args.calls
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(args.calls):
-                    call()
-                torch.cuda.synchronize()
-            kernels = []
-            for e in prof.key_averages():
-                t = getattr(e, "device_time_total", None)
-                if t is None:
-                    t = e.cuda_time_total
-                if t > 0:
-                    name = e.key.replace("void ", "").replace(
-                        "(anonymous namespace)::", "").split("(")[0]
-                    kernels.append(f"{name} {t / e.count:.2f} µs "
-                                   f"x{e.count}")
-            print(f"{'bf16' if bf16 else 'float32'} groups={groups}: "
-                  f"wrapper {wrapper_ms:.4f} ms | " + " | ".join(kernels)
-                  + f" [{card}]", flush=True)
-        cuda_local.GROUPS.update(default)
+        kernels = []
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            if t is None:
+                t = e.cuda_time_total
+            if t > 0:
+                name = e.key.replace("void ", "").replace(
+                    "(anonymous namespace)::", "").split("(")[0]
+                kernels.append(f"{name} {t / e.count:.2f} µs x{e.count}")
+        print(f"{'bf16' if dtype == torch.bfloat16 else 'float32'}: "
+              f"wrapper {wrapper_ms:.4f} ms | " + " | ".join(kernels)
+              + f" [{card}]", flush=True)
     return 0
 
 

@@ -51,16 +51,19 @@
 // 4-pixel x 4-offset register tile read from the transposed query tile and
 // staged row (three 16-byte shared loads per 16 FMAs at atrous 1).
 // Epilogue (both): the band's distances go to a per-warp buffer by window
-// offset; then the lane that owns each query pixel walks its K offsets.
-// Each belongs to one Chebyshev band, the smallest radius of the ascending
-// list that holds max(|dy|, |dx|), and takes a float min into slot
-// [pixel][band][label + 1] in shared memory (slot 0: unlabelled previous
-// pixels), a run of offsets with the same slot reduced in a register
-// first.  A pixel's slots have one owner, so these are plain, exact mins
-// with no atomics and no order between lanes: the result is deterministic.
-// At the end the slots are prefix-minned across bands (the nested
-// windows), A is the min over a band's slots, and each output channel is
-// written once, coalesced along the row.
+// offset; then two lanes per query pixel (one in each half-warp) walk
+// half of its K offsets each.  Each offset belongs to one Chebyshev band,
+// the smallest radius of the ascending list that holds max(|dy|, |dx|),
+// and so to slot [pixel][band][label + 1] in shared memory (slot 0:
+// unlabelled previous pixels).  A run of offsets with the same slot is
+// reduced in a register first; the lane then merges the run's min into
+// the slot by an exact, order-preserving shared-memory reduction
+// (`red.shared.min`, float bits as integers).  The two lanes of a pixel
+// may meet in one slot, as the CTAs of a split tile meet in the output
+// (above); a min does not depend on the order of its operands, so the
+// result is deterministic.  At the end the slots are prefix-minned across bands
+// (the nested windows), A is the min over a band's slots, and each output
+// channel is written once, coalesced along the row.
 //
 // Operand preparation (local_prep_launch, one launch): the query and the S
 // previous frames, read through their strides, become rows of the compute
@@ -631,8 +634,8 @@ local_f32_kernel(const float* __restrict__ xf, const float* __restrict__ yf,
     const float* y2s = ysT + C * SCOLS;
     const int* labs = reinterpret_cast<const int*>(y2s + SCOLS);
     // the cross term in blocks of 8 channels, each summed apart and then
-    // added: a shallower sum than one running over all C, closer to the
-    // plain version's vectorised one
+    // added: a two-level sum, whose rounding error grows with 8 + C / 8
+    // terms instead of C
     float acc[4][4], blk[4][4];
 #pragma unroll
     for (int p = 0; p < 4; ++p)

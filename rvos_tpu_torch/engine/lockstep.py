@@ -99,11 +99,15 @@ def _identical(a, b) -> bool:
 
 def lockstep_masks(cfg: Config, make_model: Callable[[], AOCNet], seq,
                    kmeans_scores: ScoreFn, device="cuda",
-                   ref_device="cpu") -> LockstepResult:
+                   ref_device="cpu", on_frame=None) -> LockstepResult:
     """Stream ``seq`` with an evaluator on ``device``, repeating each
     frame's ``segment_frame`` and each bank compaction on a reference
     model on ``ref_device``.  ``make_model()`` returns a fresh model with
-    the weights both use.  Convolutions run without TF32, which
+    the weights both use.  ``on_frame(segment, args, ups)``, when given,
+    sees each frame: the evaluator's own ``segment_frame``, the frame's
+    arguments and both sides' upsampled logits [O, H, W] on
+    ``ref_device`` (``cli.lockstep_flips`` explains the pixels where the
+    masks part).  Convolutions run without TF32, which
     ``device.configure_precision`` turns off only in parity mode: a
     comparison with the CPU needs it off under mixed matching too."""
     ev = Evaluator(cfg, make_model(), device=device,
@@ -142,8 +146,11 @@ def lockstep_masks(cfg: Config, make_model: Callable[[], AOCNet], seq,
         want = ref_logits.float()
         valid = want > -1e8
         max_dlogit = max(max_dlogit, (got - want)[valid].abs().max().item())
-        masks = [resize_nchw(x, hw, "bilinear").argmax(0) for x in (got, want)]
-        agree.append((masks[0] == masks[1]).float().mean().item())
+        ups = [resize_nchw(x, hw, "bilinear") for x in (got, want)]
+        agree.append((ups[0].argmax(0) == ups[1].argmax(0)).float().mean()
+                     .item())
+        if on_frame is not None:
+            on_frame(segment, args, ups)
         return logits, memory
 
     ev.model.segment_frame = mirrored

@@ -40,11 +40,11 @@ _MAX_C = 128      # eight 16-deep tensor-core slices
 _MAX_OBJ = 32     # one label id per lane of the preparation's warp
 _MAX_PAD = 15     # window reach in pixels: a warp's band is <= 48 columns
 _MAX_RADII = 8
-# CTAs per query tile, by mode (float32, bf16), each over a part of the
-# window rows; their results meet in an exact atomic min.  Two cut the
-# tensor-core kernel's time by a quarter at the main path's shapes (more
-# warps per SM); the float32 kernel is faster with one (PERF.md §6).
-GROUPS = {False: 1, True: 2}
+# CTAs per query tile in bf16 mode, each over a part of the window rows;
+# their results meet in an exact atomic min.  Two cut the tensor-core
+# kernel's time by a quarter at the main path's shapes (more warps per
+# SM); the float32 kernel is fastest with one (PERF.md §6).
+_GROUPS_BF16 = 2
 
 
 def _window(radii: Sequence[int], atrous_rate: int
@@ -60,22 +60,24 @@ def _window(radii: Sequence[int], atrous_rate: int
 
 def local_match_plain(x: torch.Tensor, ys: torch.Tensor,
                       onehot: torch.Tensor, radii: Sequence[int],
-                      atrous_rate: int = 1) -> torch.Tensor:
+                      atrous_rate: int = 1,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The kernel's function in plain PyTorch, one window offset at a
-    time → ``[S, h, w, O, n_r]`` float32."""
+    time → ``[S, h, w, O, n_r]``, computed in ``dtype`` (float32 as the
+    kernel; float64 gives a reference for its rounding)."""
     s_n, h, w, _ = ys.shape
     o = onehot.shape[-1]
     order, a_max, pad_d = _window(radii, atrous_rate)
     k = 2 * a_max + 1
-    x32, y32 = x.float(), ys.float()
+    x32, y32 = x.to(dtype), ys.to(dtype)
     x2 = x32.square().sum(-1)                                   # [h, w]
     y2 = y32.square().sum(-1)                                   # [S, h, w]
-    pen = (1.0 - onehot.float()) * _PEN                         # [h, w, O]
+    pen = (1.0 - onehot.to(dtype)) * _PEN                       # [h, w, O]
     yp = F.pad(y32, (0, 0, pad_d, pad_d, pad_d, pad_d))
     y2p = F.pad(y2, (pad_d, pad_d, pad_d, pad_d), value=_PEN)
     penp = F.pad(pen, (0, 0, pad_d, pad_d, pad_d, pad_d), value=_PEN)
     out = torch.full((len(order), s_n, h, w, o), _EMPTY_DIST,
-                     dtype=torch.float32, device=x.device)
+                     dtype=dtype, device=x.device)
     for dy in range(k):
         for dx in range(k):
             oy, ox = dy * atrous_rate, dx * atrous_rate
@@ -174,7 +176,7 @@ def local_match(x: torch.Tensor, ys: torch.Tensor, onehot: torch.Tensor,
     lab_ptr = norms_ptr + n_rows * 4
     out = torch.empty((s_n, n_r, o, h, w), dtype=torch.float32,
                       device=x.device)
-    groups = min(GROUPS[bf16], 2 * win[2] + 1)
+    groups = min(_GROUPS_BF16, 2 * win[2] + 1) if bf16 else 1
     prep, kernel = _entry_points()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = prep(x.data_ptr(), ys.data_ptr(), onehot.data_ptr(),

@@ -213,6 +213,62 @@ def test_noise_sensitivity_cli_runs(capsys):
     assert out["layout"] == "uniform" and out["min_frame_agreement_per_seed"] == [1.0]
 
 
+def test_lockstep_flips_cli_runs_on_cpu(capsys):
+    """The lock-step diagnosis script with the CPU on both sides: one
+    JSON line per frame, every pixel agreeing, no logit apart, then the
+    run's summary."""
+    from rvos_tpu_torch.cli import lockstep_flips
+
+    lockstep_flips.main(["--device", "cpu", "--frames", "3",
+                         "--layout", "uniform"])
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+    assert [ln["frame"] for ln in lines[:-1]] == [1, 2]
+    for ln in lines[:-1]:
+        assert ln["agree"] == 1.0 and ln["max_dlogit"] == 0.0
+        assert "pixels" not in ln
+    assert lines[-1]["agree"] == [1.0, 1.0] and lines[-1]["layout"] == "uniform"
+
+
+def test_lockstep_flips_explains_a_parted_pixel():
+    """``lockstep_flips.explain`` on a CPU lock-step frame whose first
+    side is made to part at one pixel: the pixel is reported with both
+    labels and margins, every recomputed variant (all on the CPU here)
+    gives the CPU's label back, and kernel 2's recorded call matches its
+    plain version exactly and float64 within float32 rounding."""
+    from rvos_tpu_torch.cli.lockstep_flips import explain
+    from rvos_tpu_torch.engine.lockstep import (lockstep_masks, parity_config,
+                                                parity_scores)
+
+    cfg = parity_config("occupancy")
+    seen = []
+
+    def on_frame(segment, args, ups):
+        if seen:
+            return
+        got, want = (u.clone() for u in ups)
+        b = int(want[:, 5, 7].argmax())
+        a = (b + 1) % want.shape[0]
+        got[a, 5, 7] = want[b, 5, 7] + 1.0
+        seen.append((explain(segment, args, (got, want), "global_seg_map"),
+                     a, b))
+
+    lockstep_masks(cfg, lambda: init_random_(TAOCNet(cfg),
+                                             torch.Generator().manual_seed(0)),
+                   TSyntheticEval(size=(65, 65), n_seqs=1, n_frames=2)[0],
+                   parity_scores, device="cpu", on_frame=on_frame)
+    res, a, b = seen[0]
+    assert res["agree"] == pytest.approx(1.0 - 1.0 / (65 * 65))
+    (px,) = res["pixels"]
+    assert px["pixel"] == [5, 7] and (px["card_label"], px["cpu_label"]) == (a, b)
+    assert abs(px["margin_card"] - 1.0) < 1e-5 and px["margin_cpu"] <= 0
+    for name in ("card_again", "kernel2_plain", "global_plain", "both_plain"):
+        assert px[name] == dict(label=b, margin=px["margin_cpu"]), name
+    k2 = res["kernel2"]
+    assert k2["entries_differ"] == 0 and k2["card_vs_cpu"] == 0.0
+    assert k2["card_vs_f64"] == k2["cpu_vs_f64"] < 1e-5
+    assert k2["card_vs_f64_rms"] == k2["cpu_vs_f64_rms"] <= k2["cpu_vs_f64"]
+
+
 def test_evaluator_requires_cuda_unless_cpu_requested():
     cfg = tconfigs.tiny_test(**CFG_KW)
     model = TAOCNet(cfg)
