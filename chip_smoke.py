@@ -18,20 +18,26 @@ Phases, one line each (a failing phase raises and exits non-zero):
    kernel 2): kernel 1 (B.1) at the occupancy bank, kernel 1's uniform
    entry (B.2) at the uniform-quota bank, kernel 3 (B.3) at no cap and
    at the fg-union bank, kernel 2 (B.4);
-3. the main path: the streaming evaluator with the full
-   ``resnet101_aocnet`` preset (ResNet-101, 11 object channels, 8-slot
-   bank, 16,384-row occupancy bank, bf16 compute, mixed matching) and
-   random weights from a seeded generator, on a 12-frame 3-object
-   synthetic video at 481×849; every launch counter is set to 0 just
-   before and read after, and each kernel must have launched on every
-   frame after the first;
-3b. the same run under each other bank layout — no cap
+3. the main path, the streaming evaluator's default pipeline with the
+   full ``resnet101_aocnet`` preset (ResNet-101, 11 object channels,
+   8-slot bank, 16,384-row occupancy bank, bf16 compute, mixed
+   matching) and random weights from a seeded generator, on a 22-frame
+   3-object synthetic video at 481×849: chunks of 5 frames replayed as
+   CUDA graphs, with no host synchronisation per frame; then the same
+   video frame by frame (``TEST_FRAME_CHUNK=1``).  For each: the steady
+   wall time per frame over the full chunks after the first (CUDA events
+   as each step is issued), the peak device memory, the graph captures
+   and replays, the launch counters (set to 0 just before the run; a
+   wrapper counts where it issues a launch, so a graph's kernels count
+   at its warm-up and capture) and, from ``torch.profiler`` over a second
+   run of the video, each kernel's count on every frame (a frame ends at
+   its kernel-2 launch): the layout's global kernel and kernel 2 must run
+   on every frame after the first;
+3b. the graph path under each other bank layout — no cap
    (``MATCHING_MAX_REF_PIXELS=0``) and the fg-union bank
    (``MATCHING_SEGMENTED_BANK=False``) through kernel 3, the
    uniform-quota bank (``MATCHING_OCCUPANCY_BANK=False``) through B.2 —
-   with the counters set to 0 before each: the layout's global kernel
-   and kernel 2 launch on every frame after the first, kernel 1's
-   occupancy entry never;
+   with the same checks, and kernel 1's occupancy entry never launched;
 4. the slice at a small size in parity mode under each bank layout, on
    the card (kernels) against the CPU (plain versions), each frame and
    each bank compaction of the CPU computed from the card's state
@@ -40,7 +46,14 @@ Phases, one line each (a failing phase raises and exits non-zero):
    ``WHOLE_VIDEO_LAYOUTS`` two whole-video runs must agree as well.
    Then one more lock-step run per layout with mixed matching (float32
    compute, TF32 off for convolutions too), which holds the global
-   kernels' tensor-core paths to the CPU's plain mixed versions.
+   kernels' tensor-core paths to the CPU's plain mixed versions;
+4b. the chunk step in lock-step at the same size, under each bank layout
+   in float32 and mixed matching: a 7-frame video in chunks of 3 with
+   the bank appending after each (``MEM_EVERY=3``), each chunk a graph
+   replay on the card repeated eagerly on the CPU from copies of the
+   same state (``engine.lockstep.lockstep_chunks``; the second chunk
+   reads a refreshed bank): every frame's masks must agree on ≥ 99.9 %
+   of pixels.
 
 The lines before the last are a JSON object of the kernels' numbers and
 the card's name and power limit; the last line is
@@ -279,30 +292,75 @@ def check_local(torch, ops, shapes, mixed: bool):
 GLOBAL_KERNEL = {"occupancy": "global_seg_map", "uniform": "global_seg",
                  "unsegmented": "global_flat_min", "cap0": "global_flat_min"}
 COUNTED = ("global_seg_map", "global_seg", "global_flat_min", "local_match")
+# the kernels of the path as the profiler names them (kernel 1 serves
+# B.1 and B.2; float32 and tensor-core variants alike)
+PROFILED = {"global_seg_map": r"\bseg_map_(?:mma_)?kernel\b",
+            "global_flat_min": r"\bflat_match_(?:mma_)?kernel\b",
+            "local_match": r"\blocal_(?:mma|f32)_kernel\b",
+            "dist_prep": r"\bprep::(?:query|bank)_kernel\b",
+            "local_prep": r"\bprep_kernel\b",
+            "flat_route": r"\bflat_(?:keys|tags)_kernel\b"}
+PROFILED_GLOBAL = {"global_seg_map": "global_seg_map",
+                   "global_seg": "global_seg_map",
+                   "global_flat_min": "global_flat_min"}
 
 
-def run_video(torch, ops, ev, seq, global_kernel):
-    """Stream ``seq`` with every launch counter set to 0 just before;
-    the layout's global kernel and kernel 2 must launch on every frame
-    after the first.  Returns (output, launches, steady ms, peak GB)."""
-    counts, stamps = [], []
+def kernels_per_frame(torch, ev, seq):
+    """Stream ``seq`` under ``torch.profiler`` → each profiled kernel's
+    count on every frame after the first, in start order, a frame ending
+    at its kernel-2 launch (one per frame).  Filler kernels close the
+    record (``profile_eval.pad_profile``) and must show in it."""
+    from torch.profiler import ProfilerActivity, profile
 
-    def on_frame(f):
+    from rvos_tpu_torch.cli.profile_eval import FILLER, pad_profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ev.evaluate_sequence(seq)
         torch.cuda.synchronize()
-        stamps.append(time.time())
-        counts.append([getattr(ops, k).launches for k in COUNTED])
+        pad_profile(torch)
+    names = [e.name for e in sorted(
+        (e for e in prof.events() if str(e.device_type).endswith("CUDA")),
+        key=lambda e: e.time_range.start)]
+    if not any(FILLER in n for n in names):
+        raise AssertionError("the profiler lost the end of its record")
+    counts = {k: [0] for k in PROFILED}
+    for name in names:
+        for k, pat in PROFILED.items():
+            if re.search(pat, name):
+                counts[k][-1] += 1
+        if re.search(PROFILED["local_match"], name):
+            for c in counts.values():
+                c.append(0)
+    return {k: c[:-1] for k, c in counts.items() if sum(c)}
 
+
+def run_video(torch, ops, ev, seq, global_kernel, window):
+    """Stream ``seq`` with every launch counter set to 0 just before and a
+    CUDA event recorded as each frame's step is issued (no host
+    synchronisation); then stream it again under the profiler.  The
+    layout's global kernel and kernel 2 must have launched, and the
+    profiler must see them on every frame after the first.  Returns the
+    output and the numbers phase 3 prints."""
+    from rvos_tpu_torch.cli.profile_eval import steady_frame_ms, video_steps
+    ends = []
+
+    def mark(f):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ends.append(e)
+
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in COUNTED:
         getattr(ops, k).launches = 0
-    out = ev.evaluate_sequence(seq, frame_callback=on_frame)
+    replays0, captures0 = ev.replays, ev.captures
+    out = ev.evaluate_sequence(seq, frame_callback=mark)
     launches = {k: getattr(ops, k).launches for k in COUNTED}
+    torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for f in range(1, len(counts)):
-        for i, k in enumerate(COUNTED):
-            if k in (global_kernel, "local_match") and \
-                    counts[f][i] - counts[f - 1][i] < 1:
-                raise AssertionError(f"{k} not launched on frame {f}")
+    replays, captures = ev.replays - replays0, ev.captures - captures0
+    for k in (global_kernel, "local_match"):
+        if launches[k] < 1:
+            raise AssertionError(f"{k} never launched: {launches}")
     for k in ("global_seg_map", "global_seg", "global_flat_min"):
         if k != global_kernel and launches[k]:
             raise AssertionError(f"{k} launched off its layout: {launches}")
@@ -315,12 +373,31 @@ def run_video(torch, ops, ev, seq, global_kernel):
         if not set(mask.ravel().tolist()) <= {0, 1, 2, 3}:
             raise AssertionError(f"{name}: labels outside the 3 objects")
     st = ev._last_state
-    for t in (st.prev_emb, st.memory.slot0, st.memory.slot1, st.ref_emb):
+    for t in (st.prev_emb, st.memory.slots, st.ref_emb):
         if not torch.isfinite(t).all():
             raise AssertionError("non-finite values in the streaming state")
-    steady = [b - a for a, b in zip(stamps[2:], stamps[3:])]
-    steady_ms = 1e3 * sorted(steady)[len(steady) // 2]
-    return out, launches, steady_ms, peak_gb
+    lo, hi = window
+    per_frame = steady_frame_ms(ends[:hi + 1], video_steps(ev, hi + 1), lo)
+    steady_ms = ends[lo - 1].elapsed_time(ends[hi]) / (hi - lo + 1)
+    profiled = kernels_per_frame(torch, ev, seq)
+    for k in (PROFILED_GLOBAL[global_kernel], "local_match"):
+        got = profiled.get(k, [])
+        if len(got) != len(seq) - 1 or min(got) < 1:
+            raise AssertionError(f"profiler: {k} per frame {got}")
+    return dict(out=out, launches=launches, steady_ms=steady_ms,
+                median_ms=sorted(per_frame)[len(per_frame) // 2],
+                peak_gb=peak_gb, replays=replays, captures=captures,
+                per_frame=profiled)
+
+
+def _video_line(r) -> str:
+    t = r["out"]["timing"]
+    return (f"steady_ms_per_frame={r['steady_ms']:.2f} (median "
+            f"{r['median_ms']:.2f}) peak_mem_gb={r['peak_gb']:.3f} "
+            f"captures={r['captures']} replays={r['replays']} "
+            f"wall_fps={r['out']['fps']:.2f} launch_counters={r['launches']} "
+            f"timing_s={ {k: round(v, 4) for k, v in t.items()} } "
+            f"profiler_kernels_per_frame={r['per_frame']}")
 
 
 def main() -> int:
@@ -329,10 +406,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     from rvos_tpu_torch import ops
+    from rvos_tpu_torch.cli.profile_eval import video_steps
     from rvos_tpu_torch.configs import BANK_LAYOUTS, get_config
     from rvos_tpu_torch.data import SyntheticEval
     from rvos_tpu_torch.engine import Evaluator
     from rvos_tpu_torch.engine.lockstep import (WHOLE_VIDEO_LAYOUTS,
+                                                lockstep_chunks,
                                                 lockstep_masks, parity_config,
                                                 parity_scores,
                                                 whole_video_agreement)
@@ -387,23 +466,41 @@ def main() -> int:
               f"library_ms={r['library_ms']} [{card}]", flush=True)
     print(f"phase 2 took {time.time() - t0:.1f} s", flush=True)
 
-    # ---- phase 3: the main path, counters from 0
+    # ---- phase 3: the main path, graph replays then frame by frame
     t0 = time.time()
     model = init_random_(AOCNet(cfg), torch.Generator().manual_seed(0))
+    seq = SyntheticEval(size=frame_hw, n_seqs=1, n_frames=22, obj_num=3)[0]
     ev = Evaluator(cfg, model, device="cuda")
-    seq = SyntheticEval(size=frame_hw, n_seqs=1, n_frames=12, obj_num=3)[0]
-    out, main_launches, steady_ms, peak_gb = run_video(
-        torch, ops, ev, seq, "global_seg_map")
+    steps = [s for s in video_steps(ev, len(seq)) if len(s) == ev.chunk_n]
+    window = (steps[1][0], steps[-1][-1])   # the full chunks after the first
+    main = run_video(torch, ops, ev, seq, "global_seg_map", window)
+    out = main["out"]
     labels = sorted({int(v) for m in out["results"].values()
                      for v in set(m.ravel())})
     print(f"phase 3 main path resnet101_aocnet {frame_hw[0]}x{frame_hw[1]} "
-          f"12 frames: launches global={main_launches['global_seg_map']} "
-          f"local={main_launches['local_match']} "
-          f"fps={out['fps']:.3f} (all frames, first ones included) "
-          f"steady_ms_per_frame={steady_ms:.2f} peak_mem_gb={peak_gb:.3f} "
-          f"labels={labels} took {time.time() - t0:.1f} s [{card}]", flush=True)
+          f"22 frames, chunks of {ev.chunk_n} as CUDA graphs, steady frames "
+          f"{window[0]}-{window[1]}: {_video_line(main)} labels={labels} "
+          f"took {time.time() - t0:.1f} s [{card}]", flush=True)
+    if main["replays"] != len(steps) or main["captures"] != 1:
+        raise AssertionError(f"{main['replays']} replays and "
+                             f"{main['captures']} captures for {len(steps)} "
+                             f"full chunks")
+    del ev
+    t0 = time.time()
+    pcfg = cfg.replace(TEST_FRAME_CHUNK=1)
+    pmodel = AOCNet(pcfg)
+    pmodel.load_state_dict(model.state_dict())
+    pev = Evaluator(pcfg, pmodel, device="cuda")
+    per = run_video(torch, ops, pev, seq, "global_seg_map", window)
+    agree = [round(float((per["out"]["results"][k] == m).mean()), 4)
+             for k, m in sorted(out["results"].items())]
+    print(f"phase 3 frame by frame (TEST_FRAME_CHUNK=1), same video: "
+          f"{_video_line(per)} per-frame mask agreement with the graph path "
+          f"(batch-5 and batch-1 bf16 convolutions round differently) "
+          f"{agree} took {time.time() - t0:.1f} s [{card}]", flush=True)
+    del pev, pmodel
 
-    # ---- phase 3b: the other bank layouts, counters from 0 for each
+    # ---- phase 3b: the other bank layouts, graph path, counters from 0
     layout_launches = {}
     for name, kw in BANK_LAYOUTS.items():
         if not kw:
@@ -413,14 +510,12 @@ def main() -> int:
         lmodel = AOCNet(lcfg)
         lmodel.load_state_dict(model.state_dict())
         lev = Evaluator(lcfg, lmodel, device="cuda")
-        out, launches, steady_ms, peak_gb = run_video(torch, ops, lev, seq,
-                                                      GLOBAL_KERNEL[name])
-        layout_launches[name] = launches
+        r = run_video(torch, ops, lev, seq, GLOBAL_KERNEL[name], window)
+        layout_launches[name] = r["launches"]
         print(f"phase 3b layout {name} ({kw}) resnet101_aocnet "
-              f"{frame_hw[0]}x{frame_hw[1]} 12 frames: launches {launches} "
-              f"fps={out['fps']:.3f} steady_ms_per_frame={steady_ms:.2f} "
-              f"peak_mem_gb={peak_gb:.3f} took {time.time() - t0:.1f} s "
-              f"[{card}]", flush=True)
+              f"{frame_hw[0]}x{frame_hw[1]} 22 frames, graph path: "
+              f"{_video_line(r)} took {time.time() - t0:.1f} s [{card}]",
+              flush=True)
         del lev, lmodel
 
     # ---- phase 4: small-size reference check, card vs CPU, parity
@@ -460,11 +555,39 @@ def main() -> int:
           f"runs, max |dlogit|, max |demb|, bank compactions identical): "
           f"{agree}, took {time.time() - t0:.1f} s", flush=True)
 
+    # ---- phase 4b: the chunk step, card graph replays vs CPU eager runs
+    t0 = time.time()
+    chunked = {}
+    for name in BANK_LAYOUTS:
+        for matching in ("float32", "mixed"):
+            small = parity_config(name, matching).replace(TEST_FRAME_CHUNK=3,
+                                                          MEM_EVERY=3)
+
+            def make_model():
+                return init_random_(AOCNet(small),
+                                    torch.Generator().manual_seed(0))
+
+            lock = lockstep_chunks(small, make_model, SyntheticEval(
+                size=(65, 65), n_seqs=1, n_frames=7)[0], parity_scores)
+            key = f"{name}/{matching}"
+            chunked[key] = dict(lockstep=min(lock.agree),
+                                dlogit=lock.max_dlogit, demb=lock.max_demb,
+                                steps=lock.steps, replays=lock.replays)
+            if not (len(lock.agree) == 6 and min(lock.agree) >= 0.999
+                    and lock.steps == [3, 3] and lock.replays == 2
+                    and lock.max_dlogit < 1e-2 and lock.max_demb < 1e-3):
+                raise AssertionError(f"{key}: chunk lock-step {chunked[key]}, "
+                                     f"frames {lock.agree}")
+    print(f"phase 4b chunk step in lock-step, card graph replays vs cpu eager, "
+          f"7 frames in chunks of 3 (min per-frame agreement, max |dlogit|, "
+          f"max |demb|, steps, replays): {chunked}, took "
+          f"{time.time() - t0:.1f} s", flush=True)
+
     kernels = []
     for key, name, src, rep, n in (
             ("global", "global_seg_map", "rvos_tpu_torch/csrc/global_seg_map.cu",
              "rvos_tpu/ops/pallas_matching.py:136",
-             main_launches["global_seg_map"]),
+             main["launches"]["global_seg_map"]),
             ("uniform", "global_seg", "rvos_tpu_torch/csrc/global_seg_map.cu",
              "rvos_tpu/ops/pallas_matching.py:87",
              layout_launches["uniform"]["global_seg"]),
@@ -473,7 +596,7 @@ def main() -> int:
              "rvos_tpu/ops/pallas_matching.py:47",
              layout_launches["cap0"]["global_flat_min"]),
             ("local", "local_match", "rvos_tpu_torch/csrc/local_match.cu",
-             "rvos_tpu/ops/pallas_local.py:39", main_launches["local_match"])):
+             "rvos_tpu/ops/pallas_local.py:39", main["launches"]["local_match"])):
         r, rp = res[(key, True)], res[(key, False)]
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": rep,

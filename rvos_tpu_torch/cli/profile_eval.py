@@ -1,22 +1,30 @@
 """Where a steady frame of the streaming evaluator spends its time on the
-card (``torch.profiler``).
+card (``torch.profiler``), chunked (CUDA graph replays) or frame by frame.
 
-    python -m rvos_tpu_torch.cli.profile_eval [--frames 24] [--warmup 4]
-        [--size 481 849] [--layout cap0] [--trace profile_eval_trace.json]
+    python -m rvos_tpu_torch.cli.profile_eval [--frames 26] [--layout cap0]
+        [--frame_chunk 5] [--size 481 849] [--trace trace.json]
 
 Runs the main path of ``chip_smoke.py`` (the ``resnet101_aocnet``
-preset, random weights from a seed, a 3-object synthetic video), under
-another bank layout with ``--layout`` (``configs.BANK_LAYOUTS``).  First
-it streams ``--frames`` frames without the profiler and prints the
-median and 90th percentile of the frame-to-frame times from frame 3 on
-(frames 1–2 warm cuDNN) and the peak device memory; then it streams
-them again and profiles the frames after ``--warmup``.  Each model
-stage is wrapped in CUDA events by this script only — the package
-carries no profiling code.  Prints, per profiled frame: wall time (the profiler's overhead
-included), device busy time (the sum of kernel times on the one stream)
-and idle share, the device time between each stage's start and end
-events, and the kernels with the most device time; the card and its
-power limit head the output.
+preset, random weights from a seed, a 3-object synthetic video) under
+bank layout ``--layout`` (``configs.BANK_LAYOUTS``) with
+``TEST_FRAME_CHUNK`` set to ``--frame_chunk`` (default: the preset's;
+1 runs frame by frame).  The steady frames are those after the first
+bank update and the first full chunk, the same frames in both modes
+(from frame 6 at the preset's ``MEM_EVERY`` and chunk of 5).  First it streams the video without the profiler,
+with a CUDA event recorded as each frame's step is issued and no host
+synchronisation, and prints the median and 90th percentile of the
+steady frames' times (a chunked frame counts its chunk's time over K;
+the events mark the card reaching each step's end, so host stalls are
+included), their mean, the peak device memory, the graph captures and
+replays and the evaluator's ``timing`` split.  Then it streams the video
+again under the profiler from the first steady frame on and prints, per
+profiled frame: wall time (the profiler's overhead included), device
+busy time (the sum of the device events) and idle share, kernels and
+graph replays per frame, and the kernels with the most device time.
+Frame by frame, each model stage is also wrapped in CUDA events (by this
+script only — the package carries no profiling code); a graph cannot
+hold them, so chunked runs print no stages.  The card and its power
+limit head the output.
 """
 
 from __future__ import annotations
@@ -32,8 +40,6 @@ def _stage(name, fn, log):
 
     @functools.wraps(fn)
     def run(*a, **kw):
-        if log is None:
-            return fn(*a, **kw)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         out = fn(*a, **kw)
@@ -45,9 +51,9 @@ def _stage(name, fn, log):
 
 def _instrument(ev, log):
     """Wrap the evaluator's stages in CUDA-event pairs appended to
-    ``log`` (a list, or None while not recording)."""
-    from ..models import aocnet
+    ``log``."""
     from ..engine import eval as eval_mod
+    from ..models import aocnet
     m = ev.model
     for name in ("feature_extracter", "semantic_embedding",
                  "dynamic_prehead", "dynamic_seghead"):
@@ -60,7 +66,55 @@ def _instrument(ev, log):
         setattr(aocnet, name, _stage(name, getattr(aocnet, name), log))
     eval_mod.precompact_bank = _stage("precompact_bank",
                                       eval_mod.precompact_bank, log)
-    ev._step = _stage("frame", ev._step, log)
+    ev.chunk_step = _stage("frame", ev.chunk_step, log)
+
+
+FILLER = "spin_kernel"
+
+
+def pad_profile(torch, n: int = 50_000) -> None:
+    """Queue ``n`` tiny filler kernels (``torch.cuda._sleep``, named
+    ``spin_kernel``) and wait for them, just before a profiler stops.
+    The profiler can drop its last, partly filled buffer of device
+    records when it stops (on the H100, up to ~38,500 kernel records a
+    buffer; a 22-frame video is about 40,000): the filler fills that
+    buffer, so the profiled work's records are all in delivered ones.
+    Callers leave the filler out, and check that some of it shows."""
+    for _ in range(n):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
+def video_steps(ev, n_frames: int):
+    """The steps ``ev`` streams a video of ``n_frames`` frames in when
+    nothing cuts its chunks but the chunk size and MEM_EVERY (no joins,
+    no context change), as lists of frame indices: a full chunk is one
+    step, each frame of a shorter cut another."""
+    import numpy as np
+
+    from ..engine.eval_pipeline import Chunker
+    steps = []
+    chunker = Chunker(ev.chunk_n, lambda buf, ctx: steps.append(
+        [f for f, _, _ in buf]), lambda buf, ctx: steps.extend(
+        [f] for f, _, _ in buf), ev._mem_boundary)
+    one = np.ones(1, np.float32)
+    for f in range(1, n_frames):
+        chunker.push(f, "", None, None, one, one, None)
+    chunker.flush()
+    return steps
+
+
+def steady_frame_ms(ends, steps, first: int):
+    """Per steady frame (index ``first`` on), ms: ``ends[f]`` is a CUDA
+    event recorded when frame f's step was issued; a frame gets its
+    step's time (from the previous step's end to its own) over the step's
+    frame count."""
+    out = []
+    for step in steps:
+        if step[0] >= first:
+            ms = ends[step[0] - 1].elapsed_time(ends[step[-1]])
+            out += [ms / len(step)] * len(step)
+    return out
 
 
 def main(argv=None):
@@ -68,13 +122,12 @@ def main(argv=None):
     p.add_argument("--config", default="resnet101_aocnet")
     p.add_argument("--layout", default="occupancy",
                    help="bank layout: occupancy, uniform, unsegmented, cap0")
-    p.add_argument("--frames", type=int, default=24)
-    p.add_argument("--warmup", type=int, default=4)
+    p.add_argument("--frames", type=int, default=26)
+    p.add_argument("--frame_chunk", type=int, default=-1,
+                   help="TEST_FRAME_CHUNK (-1: the preset's)")
     p.add_argument("--size", type=int, nargs=2, default=(481, 849))
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trace", default="")
-    p.add_argument("--device", default="cuda",
-                   help="cpu only rehearses the control flow")
     args = p.parse_args(argv)
 
     import torch
@@ -87,78 +140,86 @@ def main(argv=None):
     from ..weights import init_random_
 
     cfg = get_config(args.config, **BANK_LAYOUTS[args.layout])
+    if args.frame_chunk > 0:
+        cfg = cfg.replace(TEST_FRAME_CHUNK=args.frame_chunk)
     model = init_random_(AOCNet(cfg), torch.Generator().manual_seed(args.seed))
-    ev = Evaluator(cfg, model, device=args.device)
-    card = "cpu rehearsal, no device numbers"
-    if ev.device.type == "cuda":
-        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                               "--format=csv,noheader"], capture_output=True,
-                              text=True, timeout=60, check=True).stdout.strip()
-    print(f"card: {card} | layout {args.layout}")
-    on_card = ev.device.type == "cuda"
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    ev = Evaluator(cfg, model, device="cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    first = max(ev.chunk_n, cfg.MEM_EVERY, 1) + 1    # first steady frame
+    print(f"card: {card} | layout {args.layout} | frame chunk {ev.chunk_n} "
+          f"| steady frames {first}-{args.frames - 1}")
 
-    stamps = []
+    def video():
+        return SyntheticEval(size=tuple(args.size), n_seqs=1,
+                             n_frames=args.frames, obj_num=3)[0]
 
-    def stamp(f):
-        sync()
-        stamps.append(time.time())
+    ends = []
 
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
-    ev.evaluate_sequence(SyntheticEval(
-        size=tuple(args.size), n_seqs=1, n_frames=args.frames,
-        obj_num=3)[0], frame_callback=stamp)
-    steady = sorted(b - a for a, b in zip(stamps[2:], stamps[3:]))
-    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    def mark(f):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        ends.append(e)
+
+    torch.cuda.reset_peak_memory_stats()
+    out = ev.evaluate_sequence(video(), frame_callback=mark)
+    torch.cuda.synchronize()
+    steady = sorted(steady_frame_ms(ends, video_steps(ev, args.frames),
+                                    first))
+    mean = ends[first - 1].elapsed_time(ends[-1]) / (len(ends) - first)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    split = " ".join(f"{k}={1e3 * v / out['frames']:.2f}"
+                     for k, v in out["timing"].items())
     print(f"unprofiled {len(steady)} steady frames: median "
-          f"{1e3 * steady[len(steady) // 2]:.2f} ms, p90 "
-          f"{1e3 * steady[int(0.9 * (len(steady) - 1))]:.2f} ms, min "
-          f"{1e3 * steady[0]:.2f} ms, peak memory {peak:.3f} GB [{card}]",
-          flush=True)
+          f"{steady[len(steady) // 2]:.2f} ms, p90 "
+          f"{steady[int(0.9 * (len(steady) - 1))]:.2f} ms, mean {mean:.2f} "
+          f"ms, min {steady[0]:.2f} ms, peak memory {peak:.3f} GB, "
+          f"{ev.captures} captures, {ev.replays} replays, wall fps "
+          f"{out['fps']:.2f}, timing ms/frame {split} [{card}]", flush=True)
 
-    log = [] if on_card else None
-    _instrument(ev, log)
-    seq = SyntheticEval(size=tuple(args.size), n_seqs=1,
-                        n_frames=args.frames, obj_num=3)[0]
-    acts = [ProfilerActivity.CPU]
-    if ev.device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts)
+    log = []
+    if ev.chunk_n == 1:
+        _instrument(ev, log)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     start = {}
 
     def on_frame(f):
-        if f == args.warmup:
-            sync()
-            if log is not None:
-                log.clear()
+        if f == first - 1:
+            torch.cuda.synchronize()
+            log.clear()
+            start["replays"] = ev.replays
             prof.__enter__()
             start["t"] = time.time()
 
-    ev.evaluate_sequence(seq, frame_callback=on_frame)
-    sync()
+    ev.evaluate_sequence(video(), frame_callback=on_frame)
+    torch.cuda.synchronize()
     wall = time.time() - start["t"]
+    pad_profile(torch)
     prof.__exit__(None, None, None)
-    n = args.frames - 1 - args.warmup
+    n = args.frames - first
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
     def on_device(e):
-        return str(e.device_type).endswith("CUDA")
+        return str(e.device_type).endswith("CUDA") and FILLER not in e.key
 
     busy = sum(e.device_time_total for e in prof.events() if on_device(e))
     n_kernels = sum(1 for e in prof.events() if on_device(e))
     print(f"profiled {n} frames: wall {1e3 * wall / n:.2f} ms/frame, device "
           f"busy {busy / 1e3 / n:.2f} ms/frame, idle share "
-          f"{1 - busy / 1e6 / wall:.3f}, {n_kernels / n:.0f} kernels/frame "
+          f"{1 - busy / 1e6 / wall:.3f}, {n_kernels / n:.0f} kernels/frame, "
+          f"{(ev.replays - start['replays']) / n:.2f} replays/frame "
           f"[{card}]")
     stages = {}
-    for name, a, b in log or ():
+    for name, a, b in log:
         t, k = stages.get(name, (0.0, 0))
         stages[name] = (t + a.elapsed_time(b), k + 1)
     for name, (t, k) in sorted(stages.items(), key=lambda kv: -kv[1][0]):
         print(f"  stage {name:32s} {t / n:8.3f} ms/frame (calls/frame "
               f"{k / n:.1f})")
+    if not any(FILLER in e.key for e in prof.events()):
+        raise RuntimeError("the profiler lost the end of its record")
     kernels = sorted((e for e in prof.key_averages() if on_device(e)),
                      key=lambda e: e.device_time_total, reverse=True)
     for e in kernels[:20]:

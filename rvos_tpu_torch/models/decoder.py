@@ -8,14 +8,17 @@
   → decoder_final (bicubic ↑ to low-level, GCT shortcut, 2×conv)
   → per-object dynamic 1×1 FG/BG logits → background augmentation.
 
-Feature memory: two slots of post-ASPP-stage features per video.  Slot 0
+Feature memory: two slots of post-ASPP-stage features per video, of a
+fixed shape with a validity flag each (``DecoderMemory.empty``).  Slot 0
 is refreshed every frame; slot 1 is sticky from its first assignment.
-An empty memory (the first decoded frame) reads the current features.
+An invalid slot (the first decoded frame) reads the current features,
+selected on the flags on the device, so a frame with memory and one
+without run the same operations (one CUDA graph serves both).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 from torch import nn
@@ -25,9 +28,18 @@ from .layers import GCT, GN, ConditioningBlock, GNASPP, GNBottleneck, IAGate
 
 
 class DecoderMemory(NamedTuple):
-    """Two slots of [O, 256, h8, w8] features; ``None`` until set."""
-    slot0: Optional[torch.Tensor] = None
-    slot1: Optional[torch.Tensor] = None
+    """Two slots of post-ASPP features, the JAX package's form
+    (``rvos_tpu/models/decoder.py:35-46``) in the port's layout."""
+    slots: torch.Tensor     # [2, O, 256, h8, w8]
+    valid: torch.Tensor     # [2] bool
+
+    @staticmethod
+    def empty(n_obj: int, h8: int, w8: int, channels: int = 256,
+              dtype=torch.float32, device=None) -> "DecoderMemory":
+        return DecoderMemory(
+            torch.zeros((2, n_obj, channels, h8, w8), dtype=dtype,
+                        device=device),
+            torch.zeros((2,), dtype=torch.bool, device=device))
 
 
 def _inter_object_delta(x, obj_valid):
@@ -92,11 +104,12 @@ class CalibrationDecoding(nn.Module):
         x = self.ASPP(x)
 
         x_cur_1 = x
-        mem0 = x_cur_1 if memory.slot0 is None else memory.slot0
+        mem0 = torch.where(memory.valid[0], memory.slots[0], x_cur_1)
         x = self._modulator(x, mem0, head, "M1")
-        mem1 = x if memory.slot1 is None else memory.slot1
+        mem1 = torch.where(memory.valid[1], memory.slots[1], x)
         x = self._modulator(x, mem1, head, "M2")
-        new_memory = DecoderMemory(x_cur_1, mem1)
+        new_memory = DecoderMemory(torch.stack([x_cur_1, mem1]),
+                                   torch.ones_like(memory.valid))
 
         x = self._decoder_final(x, low_level, head, obj_valid)
         fg = self._ia_logit(x, head, self.IA_final_fg)

@@ -40,13 +40,14 @@ def squash_distance(d: torch.Tensor, dis_bias: torch.Tensor) -> torch.Tensor:
 
 def _hash_tie(r: int, device) -> torch.Tensor:
     """Knuth-hash tie-break in [0, 1): ``idx·2654435761 mod 2³² mod
-    (2³¹−1)`` in float32, the JAX package's uint32 arithmetic."""
+    (2³¹−1)`` in float32, the JAX package's uint32 arithmetic.  Its
+    divisor ``float32(2³¹−1)`` rounds to 2³¹, so dividing by the Python
+    scalar is the same exact division, with no tensor copied from the
+    host (which would wait for the card's queued work)."""
     idx = torch.arange(r, dtype=torch.int64, device=device)
     h = (idx * 2654435761) & 0xFFFFFFFF
     h = h % 0x7FFFFFFF
-    return h.to(torch.float32) / torch.tensor(float(0x7FFFFFFF),
-                                              dtype=torch.float32,
-                                              device=device)
+    return h.to(torch.float32) / float(0x7FFFFFFF)
 
 
 def _top_idx(score: torch.Tensor, k: int) -> torch.Tensor:

@@ -7,12 +7,16 @@
 index computed in float64 exactly as the JAX package computes it:
 ``F.interpolate(mode="nearest")`` does that arithmetic in float32 and
 picks another source row for some size pairs (1168 of the 199² pairs up
-to 199), which would move label maps by a pixel.
+to 199), which would move label maps by a pixel.  On a card the index
+is kept on it, per (sizes, device) and never evicted: a resize inside a
+frame's step copies nothing from the host, and a CUDA graph that reads
+the index can rely on its memory.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -20,10 +24,25 @@ import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=256)
-def _nearest_index(in_size: int, out_size: int) -> torch.Tensor:
+def _nearest_index_host(in_size: int, out_size: int) -> torch.Tensor:
     src = np.minimum((np.arange(out_size) * (in_size / out_size))
                      .astype(np.int64), in_size - 1)
     return torch.from_numpy(src)
+
+
+_DEVICE_INDEX: Dict[Tuple[int, int, torch.device], torch.Tensor] = {}
+
+
+def _nearest_index(in_size: int, out_size: int,
+                   device: torch.device) -> torch.Tensor:
+    if device.type == "cpu":
+        return _nearest_index_host(in_size, out_size)
+    key = (in_size, out_size, device)
+    idx = _DEVICE_INDEX.get(key)
+    if idx is None:
+        idx = _DEVICE_INDEX[key] = _nearest_index_host(
+            in_size, out_size).to(device)
+    return idx
 
 
 def resize_nchw(x: torch.Tensor, out_hw, mode: str = "bilinear"
@@ -34,8 +53,8 @@ def resize_nchw(x: torch.Tensor, out_hw, mode: str = "bilinear"
     if (h, w) == (oh, ow):
         return x
     if mode == "nearest":
-        iy = _nearest_index(h, oh).to(x.device)
-        ix = _nearest_index(w, ow).to(x.device)
+        iy = _nearest_index(h, oh, x.device)
+        ix = _nearest_index(w, ow, x.device)
         return x.index_select(-2, iy).index_select(-1, ix)
     if mode not in ("bilinear", "bicubic"):
         raise ValueError(f"unknown resize mode: {mode}")

@@ -17,6 +17,7 @@ from rvos_tpu_torch.cli import eval as tcli
 from rvos_tpu_torch.configs import get_config
 from rvos_tpu_torch.models import AOCNet
 from rvos_tpu_torch.weights import init_random_
+from torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 _ARGV = [
     [],
@@ -25,6 +26,9 @@ _ARGV = [
     ["--matching_dtype", "float32", "--eval_dtype", "float32",
      "--max_long_edge", "600", "--min_matching_pixels", "4096"],
     ["--float16", "--global_atrous_rate", "2", "--exp_name", "x"],
+    ["--dataset", "davis2017", "--davis_root", "D", "--perturb", "3",
+     "--all_labels", "--jf"],
+    ["--ms", "1.0", "1.5", "--flip"],
 ]
 
 
@@ -93,7 +97,11 @@ def test_cli_loads_reference_checkpoint(tmp_path):
 
 def test_cli_refuses_what_it_cannot_run(tmp_path):
     """A checkpoint that does not load is an error, not random weights;
-    a shard id outside the shard count exits."""
+    a shard id outside the shard count exits; the ensemble flags name the
+    queue item that ports them."""
+    for argv in (["--flip"], ["--ms", "1.0", "1.5"]):
+        with pytest.raises(NotImplementedError, match="Queue A item 4"):
+            _run(tmp_path, "c", *argv)
     with pytest.raises(FileNotFoundError):
         _run(tmp_path, "a", "--ckpt_path", str(tmp_path / "missing.pth"))
     with pytest.raises(SystemExit):

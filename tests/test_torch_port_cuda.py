@@ -11,12 +11,16 @@ Tolerance: max |kernel − plain| / max(|plain|, 1) ≤ 1e-4 in float32
 the same bf16 operands, float32 accumulation in another order).
 """
 
+import numpy as np
 import pytest
 import torch
 
 from rvos_tpu_torch import ops
 from rvos_tpu_torch.data import SyntheticEval
-from rvos_tpu_torch.engine.lockstep import (WHOLE_VIDEO_LAYOUTS, lockstep_masks,
+from rvos_tpu_torch.engine import Evaluator
+from rvos_tpu_torch.engine.eval import ChunkIO
+from rvos_tpu_torch.engine.lockstep import (WHOLE_VIDEO_LAYOUTS,
+                                            lockstep_chunks, lockstep_masks,
                                             parity_config, parity_scores,
                                             whole_video_agreement)
 from rvos_tpu_torch.models import AOCNet
@@ -345,3 +349,79 @@ def test_evaluator_lockstep_mixed_on_card_matches_cpu(dev, layout):
     assert len(res.agree) == 5 and min(res.agree) >= 0.999, res.agree
     assert res.max_dlogit < 1e-2 and res.max_demb < 1e-3
     assert len(res.banks_equal) == 3 and all(res.banks_equal)
+
+
+def _chunk_config(layout, matching="mixed"):
+    """The parity setting in chunks of 3 with the bank appending after
+    each (frames 1-3 and 4-6 of a 7-frame video are full chunks)."""
+    return parity_config(layout, matching).replace(TEST_FRAME_CHUNK=3,
+                                                   MEM_EVERY=3)
+
+
+@pytest.mark.parametrize("matching", ["float32", "mixed"])
+@pytest.mark.parametrize("layout", sorted(_GLOBAL_KERNEL))
+def test_chunk_graph_replay_equals_eager_run(dev, layout, matching):
+    """Each full chunk as a CUDA graph replay against the same chunk
+    function run eagerly on the card from copies of the same state: the
+    masks are identical (max |Δlogit| printed; expected 0).  The second
+    chunk reads the bank as refreshed after frame 3."""
+    cfg = _chunk_config(layout, matching)
+    res = lockstep_chunks(cfg, _make_model(cfg),
+                          SyntheticEval(size=(65, 65), n_seqs=1,
+                                        n_frames=7)[0],
+                          parity_scores, device="cuda", ref_device="cuda")
+    print(f"{layout}/{matching}: replay vs eager max |dlogit| "
+          f"{res.max_dlogit:.3e}, max |demb| {res.max_demb:.3e}")
+    assert res.steps == [3, 3] and res.replays == 2
+    assert res.agree == [1.0] * 6
+
+
+def test_bank_refresh_reaches_the_graph(dev):
+    """A graph captured on a state reads what ``add_ref`` and the bank
+    compaction later write into that state's tensors: after a refresh,
+    the replayed chunk equals the eager chunk from the same state, and
+    differs from the eager chunk over the old bank."""
+    cfg = _chunk_config("occupancy")
+    ev = Evaluator(cfg, _make_model(cfg)(), device="cuda",
+                   kmeans_scores=parity_scores)
+    ev.evaluate_sequence(SyntheticEval(size=(65, 65), n_seqs=1,
+                                       n_frames=4)[0])
+    assert ev.captures == 1 and ev.replays == 1
+    st = ev._last_state
+    (graph,) = st.graphs.values()
+    io, hw = graph.io, (65, 65)
+
+    def eager(state):
+        io2 = ChunkIO(*(t.clone() for t in io[:4]), torch.empty_like(io.preds))
+        ev.chunk_step(io2, state.copy_to(dev), hw)
+        return io2.preds
+
+    old = eager(st)
+    lab = torch.zeros_like(st.conf)
+    lab[:, : lab.shape[1] // 2] = 2
+    st.add_ref(st.prev_emb, lab)
+    ev._ensure_flat(st, np.array([1, 1, 1, 0], np.float32))
+    want = eager(st)
+    ev.run_chunk(st, io, hw)
+    assert ev.replays == 2
+    assert torch.equal(io.preds, want)
+    assert not torch.equal(want, old)
+
+
+def test_failed_capture_raises(dev):
+    """A chunk step that cannot be captured (here it synchronises the
+    card) raises; nothing falls back to an eager run."""
+    cfg = _chunk_config("occupancy")
+    model = _make_model(cfg)()
+    ev = Evaluator(cfg, model, device="cuda", kmeans_scores=parity_scores)
+    segment = ev.model.segment_frame
+
+    def syncing(*args):
+        torch.cuda.synchronize()
+        return segment(*args)
+
+    ev.model.segment_frame = syncing
+    with pytest.raises(RuntimeError):
+        ev.evaluate_sequence(SyntheticEval(size=(65, 65), n_seqs=1,
+                                           n_frames=4)[0])
+    assert ev.replays == 0

@@ -29,6 +29,7 @@ from rvos_tpu_torch.data import SyntheticEval as TSyntheticEval
 from rvos_tpu_torch.engine import Evaluator as TEvaluator
 from rvos_tpu_torch.models import AOCNet as TAOCNet
 from rvos_tpu_torch.weights import from_jax_params, init_random_
+from torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 SIZE = (33, 33)
 CFG_KW = dict(DATA_RANDOMCROP=SIZE, MODEL_MULTI_LOCAL_DISTANCE=(1, 2),

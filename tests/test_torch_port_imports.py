@@ -1,6 +1,8 @@
 """The port stands alone: no file of ``rvos_tpu_torch/`` (nor
 ``chip_smoke.py``) imports JAX, flax or the JAX package, and importing
-every module of the port leaves ``jax`` out of ``sys.modules``."""
+every module of the port leaves ``jax`` out of ``sys.modules`` — and
+cv2 and PIL, which an installation for the GPU need not have (the port
+reads and writes images with PIL inside the functions that need it)."""
 
 import ast
 import os
@@ -37,6 +39,19 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+# modules whose JAX counterparts import jax, cv2 or PIL at the top (the
+# pipeline, loader, datasets, perturbations, metrics): the port keeps
+# its own copies, and the checks here must cover them
+_STANDALONE = ("data/datasets.py", "data/loader.py", "data/perturb.py",
+               "engine/eval.py", "engine/eval_pipeline.py",
+               "utils/davis_metrics.py", "utils/eval_zip.py")
+
+
+@pytest.mark.parametrize("rel", _STANDALONE)
+def test_pipeline_and_data_modules_are_checked(rel):
+    assert ROOT / "rvos_tpu_torch" / rel in _port_files()
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -45,7 +60,7 @@ def test_importing_the_port_loads_no_jax():
         "'rvos_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'flax', 'rvos_tpu'))\n"
+        "('jax', 'flax', 'rvos_tpu', 'cv2', 'PIL'))\n"
         "print(len(sys.modules), bad)\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -23,6 +23,7 @@ from rvos_tpu_torch.models import AOCNet as TAOCNet
 from rvos_tpu_torch.models import DecoderMemory as TDecoderMemory
 from rvos_tpu_torch.models import precompact_bank as t_precompact_bank
 from rvos_tpu_torch.weights import from_jax_params, load_reference_checkpoint
+from torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 H = W = 33
 CFG_KW = dict(MODEL_MULTI_LOCAL_DISTANCE=(2, 4), MODEL_MAX_OBJ_NUM=3)
@@ -148,6 +149,7 @@ def _check_segment_frame(setup, bank, matching, monkeypatch, **cfg_kw):
         if cfg.MATCHING_MAX_REF_PIXELS:
             r = min(r, cfg.MATCHING_MAX_REF_PIXELS)
     mem = DecoderMemory.empty(o, (h + 1) // 2, (w + 1) // 2, 256)
+    tmem0 = TDecoderMemory.empty(o, (h + 1) // 2, (w + 1) // 2, 256)
     logits, new_mem = model.apply(
         variables, jnp.asarray(emb[2]), jnp.asarray(low[2]),
         jnp.asarray(ref_emb), jnp.asarray(ref_oh), jnp.asarray(slot_valid),
@@ -169,7 +171,7 @@ def _check_segment_frame(setup, bank, matching, monkeypatch, **cfg_kw):
     with torch.no_grad():
         tlogits, tmem = tmodel.segment_frame(
             _t(emb[2]), _t(low[2]), _t(ref_emb), _t(ref_oh), _t(slot_valid),
-            _t(emb[1]), _t(prev_onehot), _t(obj_valid), TDecoderMemory(),
+            _t(emb[1]), _t(prev_onehot), _t(obj_valid), tmem0,
             scores, *tflat)
         # a second frame reads the memory; slot 1 stays as it was
         _, tmem2 = tmodel.segment_frame(
@@ -181,10 +183,11 @@ def _check_segment_frame(setup, bank, matching, monkeypatch, **cfg_kw):
     assert diff < 1e-2, diff
     assert (tlogits.argmax(0) == logits.argmax(0)).mean() > 0.999
     np.testing.assert_allclose(
-        tmem.slot0.permute(0, 2, 3, 1).numpy(), np.asarray(new_mem.slots[0]),
-        atol=1e-3, rtol=1e-3)
-    assert torch.equal(tmem2.slot1, tmem.slot1)
-    assert not torch.equal(tmem2.slot0, tmem.slot0)
+        tmem.slots[0].permute(0, 2, 3, 1).numpy(),
+        np.asarray(new_mem.slots[0]), atol=1e-3, rtol=1e-3)
+    assert tmem.valid.tolist() == [True, True]
+    assert torch.equal(tmem2.slots[1], tmem.slots[1])
+    assert not torch.equal(tmem2.slots[0], tmem.slots[0])
     seg = (bank == "precompacted" and cfg.MATCHING_SEGMENTED_BANK
            and bool(cfg.MATCHING_MAX_REF_PIXELS))
     want_route = ("global_matching_flat_segmented" if seg
@@ -265,8 +268,10 @@ def test_reference_checkpoint_loads_like_jax(setup, tmp_path):
                             method=AOCNet.segment_frame)
     logits = np.asarray(logits)
     with torch.no_grad():
-        tlogits, _ = tm.segment_frame(*map(_t, args), TDecoderMemory(),
-                                      _t(_kmeans_draws(key, o, h * w)))
+        tlogits, _ = tm.segment_frame(
+            *map(_t, args),
+            TDecoderMemory.empty(o, (h + 1) // 2, (w + 1) // 2, 256),
+            _t(_kmeans_draws(key, o, h * w)))
     tlogits = tlogits.numpy()
     assert np.abs(tlogits - logits).max() < 1e-2
     assert (tlogits.argmax(0) == logits.argmax(0)).mean() > 0.999
@@ -299,6 +304,6 @@ def test_segment_frame_masks_invalid_objects(setup):
         logits, _ = tmodel.segment_frame(
             _t(emb[2]), _t(low[2]), _t(emb[0][None]), _t(onehot[None]),
             torch.ones(1), _t(emb[1]), _t(prev_onehot), obj_valid,
-            TDecoderMemory(), scores)
+            TDecoderMemory.empty(o, (h + 1) // 2, (w + 1) // 2, 256), scores)
     assert torch.isfinite(logits[:2]).all()
     assert (logits[2] <= -1e8).all()

@@ -24,6 +24,7 @@ from rvos_tpu.ops.resize import resize_hw as j_resize_hw
 
 from rvos_tpu_torch import ops as tops
 from rvos_tpu_torch.ops import matching as tm
+from torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def _t(a):
