@@ -17,7 +17,9 @@ Phases, one line each (a failing phase raises and exits non-zero):
    ``q @ rᵀ`` for the global kernels, each pixel's K×K window for
    kernel 2): kernel 1 (B.1) at the occupancy bank, kernel 1's uniform
    entry (B.2) at the uniform-quota bank, kernel 3 (B.3) at no cap and
-   at the fg-union bank, kernel 2 (B.4);
+   at the fg-union bank, kernel 2 (B.4); B.1 and B.4 again at the
+   ensemble's largest scale (a 593×1041 frame: 38,889 query rows, a
+   75×131 local grid);
 3. the main path, the streaming evaluator's default pipeline with the
    full ``resnet101_aocnet`` preset (ResNet-101, 11 object channels,
    8-slot bank, 16,384-row occupancy bank, bf16 compute, mixed
@@ -32,12 +34,19 @@ Phases, one line each (a failing phase raises and exits non-zero):
    at its warm-up and capture) and, from ``torch.profiler`` over a second
    run of the video, each kernel's count on every frame (a frame ends at
    its kernel-2 launch): the layout's global kernel and kernel 2 must run
-   on every frame after the first;
+   on every frame after the first.  A line before it gives the time of the
+   default k-means draws (``ops.prng``) per frame;
 3b. the graph path under each other bank layout — no cap
    (``MATCHING_MAX_REF_PIXELS=0``) and the fg-union bank
    (``MATCHING_SEGMENTED_BANK=False``) through kernel 3, the
    uniform-quota bank (``MATCHING_OCCUPANCY_BANK=False``) through B.2 —
    with the same checks, and kernel 1's occupancy entry never launched;
+3c. the multi-scale + flip ensemble ("MF", the reference's headline
+   setting: scales 1.0, 1.15 and 1.3 with flip, the long edge capped at
+   800 before scaling) on the occupancy bank at full width, a 16-frame
+   481×849 video in chunks of 5 (three graph replays, one capture), with
+   the same checks and counts; the profiler must see kernel 1 and kernel
+   2 once per variant (six times) on every frame after the first;
 4. the slice at a small size in parity mode under each bank layout, on
    the card (kernels) against the CPU (plain versions), each frame and
    each bank compaction of the CPU computed from the card's state
@@ -46,14 +55,26 @@ Phases, one line each (a failing phase raises and exits non-zero):
    ``WHOLE_VIDEO_LAYOUTS`` two whole-video runs must agree as well.
    Then one more lock-step run per layout with mixed matching (float32
    compute, TF32 off for convolutions too), which holds the global
-   kernels' tensor-core paths to the CPU's plain mixed versions;
+   kernels' tensor-core paths to the CPU's plain mixed versions; and the
+   ensemble (scales 1.0 and 1.3 with flip, the occupancy bank) in
+   lock-step, every variant's step repeated on the CPU, in both
+   matching modes;
 4b. the chunk step in lock-step at the same size, under each bank layout
    in float32 and mixed matching: a 7-frame video in chunks of 3 with
    the bank appending after each (``MEM_EVERY=3``), each chunk a graph
    replay on the card repeated eagerly on the CPU from copies of the
    same state (``engine.lockstep.lockstep_chunks``; the second chunk
-   reads a refreshed bank): every frame's masks must agree on ≥ 99.9 %
-   of pixels.
+   reads a refreshed bank); then the ensemble's chunks the same way, and
+   its graph replays against eager runs on the card, which must be equal.
+
+Every lock-step comparison with the CPU passes the gate of
+``engine.lockstep.gate_failures``: masks agree on ≥ 99.9 % of every
+frame, max |Δlogit| < 1e-2, and every pixel where they part is a near
+tie (its CPU top-two margin below the frame's max |Δ|).  The ensemble's
+CPU side goes on with the card's decoder top-β masks, each parted entry
+a near tie (``share_masks``), and is run once more on its own masks for
+the record (``/own_masks``, not gated); every other check keeps each
+side's own masks.
 
 The lines before the last are a JSON object of the kernels' numbers and
 the card's name and power limit; the last line is
@@ -308,8 +329,8 @@ PROFILED_GLOBAL = {"global_seg_map": "global_seg_map",
 def kernels_per_frame(torch, ev, seq):
     """Stream ``seq`` under ``torch.profiler`` → each profiled kernel's
     count on every frame after the first, in start order, a frame ending
-    at its kernel-2 launch (one per frame).  Filler kernels close the
-    record (``profile_eval.pad_profile``) and must show in it."""
+    at its last kernel-2 launch (one per variant).  Filler kernels close
+    the record (``profile_eval.pad_profile``) and must show in it."""
     from torch.profiler import ProfilerActivity, profile
 
     from rvos_tpu_torch.cli.profile_eval import FILLER, pad_profile
@@ -322,12 +343,13 @@ def kernels_per_frame(torch, ev, seq):
         key=lambda e: e.time_range.start)]
     if not any(FILLER in n for n in names):
         raise AssertionError("the profiler lost the end of its record")
+    n_var = len(ev.variants.flips)
     counts = {k: [0] for k in PROFILED}
     for name in names:
         for k, pat in PROFILED.items():
             if re.search(pat, name):
                 counts[k][-1] += 1
-        if re.search(PROFILED["local_match"], name):
+        if counts["local_match"][-1] == n_var:
             for c in counts.values():
                 c.append(0)
     return {k: c[:-1] for k, c in counts.items() if sum(c)}
@@ -372,17 +394,18 @@ def run_video(torch, ops, ev, seq, global_kernel, window):
             raise AssertionError(f"{name}: mask {mask.shape} {mask.dtype}")
         if not set(mask.ravel().tolist()) <= {0, 1, 2, 3}:
             raise AssertionError(f"{name}: labels outside the 3 objects")
-    st = ev._last_state
-    for t in (st.prev_emb, st.memory.slots, st.ref_emb):
-        if not torch.isfinite(t).all():
-            raise AssertionError("non-finite values in the streaming state")
+    for st in ev._last_states:
+        for t in (st.prev_emb, st.memory.slots, st.ref_emb):
+            if not torch.isfinite(t).all():
+                raise AssertionError("non-finite values in the streaming state")
     lo, hi = window
     per_frame = steady_frame_ms(ends[:hi + 1], video_steps(ev, hi + 1), lo)
     steady_ms = ends[lo - 1].elapsed_time(ends[hi]) / (hi - lo + 1)
     profiled = kernels_per_frame(torch, ev, seq)
+    n_var = len(ev.variants.flips)
     for k in (PROFILED_GLOBAL[global_kernel], "local_match"):
         got = profiled.get(k, [])
-        if len(got) != len(seq) - 1 or min(got) < 1:
+        if len(got) != len(seq) - 1 or min(got) < n_var:
             raise AssertionError(f"profiler: {k} per frame {got}")
     return dict(out=out, launches=launches, steady_ms=steady_ms,
                 median_ms=sorted(per_frame)[len(per_frame) // 2],
@@ -400,6 +423,14 @@ def _video_line(r) -> str:
             f"profiler_kernels_per_frame={r['per_frame']}")
 
 
+def _own_masks(lock, gate_failures) -> dict:
+    """A lock-step run whose reference kept its own decoder masks, for the
+    record beside the gated run that shares them."""
+    return dict(lockstep=min(lock.agree), dlogit=lock.max_dlogit,
+                masks_parted=lock.masks_parted,
+                gate_failures=gate_failures(lock))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -411,12 +442,14 @@ def main() -> int:
     from rvos_tpu_torch.data import SyntheticEval
     from rvos_tpu_torch.engine import Evaluator
     from rvos_tpu_torch.engine.lockstep import (WHOLE_VIDEO_LAYOUTS,
+                                                gate_failures,
                                                 lockstep_chunks,
                                                 lockstep_masks, parity_config,
                                                 parity_scores,
                                                 whole_video_agreement)
     from rvos_tpu_torch.models import AOCNet
     from rvos_tpu_torch.ops import _cuda
+    from rvos_tpu_torch.ops.prng import kmeans_init_scores
     from rvos_tpu_torch.weights import init_random_
 
     # ---- phase 1: the card and the build
@@ -450,6 +483,9 @@ def main() -> int:
                   p=cfg.MATCHING_MAX_REF_PIXELS, lh=h4 // 2 + 1,
                   lw=w4 // 2 + 1, radii=tuple(cfg.MODEL_MULTI_LOCAL_DISTANCE),
                   atrous=cfg.TEST_LOCAL_ATROUS_RATE)
+    # the ensemble's largest scale: 481×849 capped at 800 and scaled by
+    # 1.3 is a 593×1041 frame, a 149×261 grid
+    mf_shapes = dict(shapes, m=149 * 261, lh=149 // 2 + 1, lw=261 // 2 + 1)
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {}
     for mixed in (False, True):
@@ -458,6 +494,8 @@ def main() -> int:
         res[("flat", mixed)] = check_flat(torch, ops, shapes, mixed, False)
         res[("flat_fg", mixed)] = check_flat(torch, ops, shapes, mixed, True)
         res[("local", mixed)] = check_local(torch, ops, shapes, mixed)
+        res[("global_mf", mixed)] = check_global(torch, ops, mf_shapes, mixed)
+        res[("local_mf", mixed)] = check_local(torch, ops, mf_shapes, mixed)
     for (k, mixed), r in res.items():
         print(f"phase 2 {k} {'mixed' if mixed else 'f32'} shape={r['shape']}: "
               f"max_abs_err={r['max_abs_err']:.3e} rel={r['rel_err']:.3e} "
@@ -466,7 +504,12 @@ def main() -> int:
               f"library_ms={r['library_ms']} [{card}]", flush=True)
     print(f"phase 2 took {time.time() - t0:.1f} s", flush=True)
 
-    # ---- phase 3: the main path, graph replays then frame by frame
+    # ---- phase 3: the main path, graph replays then frame by frame; the
+    # default k-means draws first, one block as the evaluator draws it
+    rows, n_obj = cfg.MATCHING_MAX_REF_PIXELS, cfg.MODEL_MAX_OBJ_NUM
+    block = max(1, min(32, (1 << 21) // (n_obj * rows)))
+    draw_ms = _time_ms(lambda: kmeans_init_scores(range(block), n_obj, rows,
+                                                  "cuda"), 10)
     t0 = time.time()
     model = init_random_(AOCNet(cfg), torch.Generator().manual_seed(0))
     seq = SyntheticEval(size=frame_hw, n_seqs=1, n_frames=22, obj_num=3)[0]
@@ -477,6 +520,11 @@ def main() -> int:
     out = main["out"]
     labels = sorted({int(v) for m in out["results"].values()
                      for v in set(m.ravel())})
+    print(f"phase 3 k-means draws (threefry, the JAX evaluator's): "
+          f"{draw_ms:.4f} ms per block of {block} frames x {n_obj} objects "
+          f"x {rows} rows, {draw_ms / block:.4f} ms a frame = "
+          f"{draw_ms / block / main['steady_ms']:.4%} of the steady frame "
+          f"[{card}]", flush=True)
     print(f"phase 3 main path resnet101_aocnet {frame_hw[0]}x{frame_hw[1]} "
           f"22 frames, chunks of {ev.chunk_n} as CUDA graphs, steady frames "
           f"{window[0]}-{window[1]}: {_video_line(main)} labels={labels} "
@@ -518,70 +566,127 @@ def main() -> int:
               flush=True)
         del lev, lmodel
 
+    # ---- phase 3c: the multi-scale + flip ensemble, graph path
+    t0 = time.time()
+    mcfg = cfg.replace(TEST_MULTISCALE=(1.0, 1.15, 1.3), TEST_FLIP=True,
+                       TEST_MAX_SIZE=800.0)
+    mmodel = AOCNet(mcfg)
+    mmodel.load_state_dict(model.state_dict())
+    mev = Evaluator(mcfg, mmodel, device="cuda")
+    mseq = SyntheticEval(size=frame_hw, n_seqs=1, n_frames=16, obj_num=3)[0]
+    msteps = [s for s in video_steps(mev, len(mseq)) if len(s) == mev.chunk_n]
+    mwindow = (msteps[1][0], msteps[-1][-1])
+    mf = run_video(torch, ops, mev, mseq, "global_seg_map", mwindow)
+    shapes_mf = sorted({tuple(st.prev_lab.shape) for st in mev._last_states})
+    print(f"phase 3c ensemble (scales {mcfg.TEST_MULTISCALE}, flip, long edge "
+          f"800) resnet101_aocnet {frame_hw[0]}x{frame_hw[1]} 16 frames, "
+          f"{len(mev.variants.flips)} variants on grids {shapes_mf}, chunks "
+          f"of {mev.chunk_n} as CUDA graphs, steady frames {mwindow[0]}-"
+          f"{mwindow[1]}: {_video_line(mf)} took {time.time() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    if mf["replays"] != len(msteps) or mf["captures"] != 1:
+        raise AssertionError(f"{mf['replays']} replays and {mf['captures']} "
+                             f"captures for {len(msteps)} full chunks")
+    del mev, mmodel
+
     # ---- phase 4: small-size reference check, card vs CPU, parity
-    # setting; float32 matching, then mixed matching (tensor-core paths)
+    # setting; float32 matching, then mixed matching (tensor-core paths);
+    # then the ensemble (scales 1.0 and 1.3 with flip: 65×65 and 81×81)
+    def mf_config(matching, chunk=1):
+        return parity_config("occupancy", matching).replace(
+            TEST_FLIP=True, TEST_MULTISCALE=(1.0, 1.3), TEST_FRAME_CHUNK=chunk,
+            MEM_EVERY=3 if chunk > 1 else 2)
+
+    def seeded(c):
+        return lambda: init_random_(AOCNet(c), torch.Generator().manual_seed(0))
+
+    def make_seq(n=6):
+        return SyntheticEval(size=(65, 65), n_seqs=1, n_frames=n)[0]
+
     t0 = time.time()
     agree = {}
-    for name in BANK_LAYOUTS:
-        for matching in ("float32", "mixed"):
-            small = parity_config(name, matching)
-
-            def make_model():
-                return init_random_(AOCNet(small),
-                                    torch.Generator().manual_seed(0))
-
-            def make_seq():
-                return SyntheticEval(size=(65, 65), n_seqs=1, n_frames=6)[0]
-
-            lock = lockstep_masks(small, make_model, make_seq(), parity_scores)
-            whole = None
-            if name in WHOLE_VIDEO_LAYOUTS and matching == "float32":
-                whole = whole_video_agreement(small, make_model, make_seq,
-                                              parity_scores)
-            key = f"{name}/{matching}"
-            agree[key] = dict(lockstep=min(lock.agree), dlogit=lock.max_dlogit,
-                              demb=lock.max_demb, banks=lock.banks_equal,
-                              whole_video=min(whole) if whole else None)
-            if not (len(lock.agree) == 5 and min(lock.agree) >= 0.999
-                    and lock.max_dlogit < 1e-2 and lock.max_demb < 1e-3
-                    and lock.banks_equal and all(lock.banks_equal)
-                    and (whole is None or (len(whole) == 5
-                                           and min(whole) >= 0.999))):
-                raise AssertionError(f"{key}: card vs CPU: {agree[key]}, "
-                                     f"lock-step frames {lock.agree}, whole "
-                                     f"video {whole}")
+    cases = [(name, matching, parity_config(name, matching))
+             for name in BANK_LAYOUTS for matching in ("float32", "mixed")]
+    cases += [("ensemble", m, mf_config(m)) for m in ("float32", "mixed")]
+    for name, matching, small in cases:
+        lock = lockstep_masks(small, seeded(small), make_seq(), parity_scores,
+                              share_masks=name == "ensemble")
+        whole = None
+        if name in WHOLE_VIDEO_LAYOUTS and matching == "float32":
+            whole = whole_video_agreement(small, seeded(small), make_seq,
+                                          parity_scores)
+        key = f"{name}/{matching}"
+        n_var = 4 if name == "ensemble" else 1
+        agree[key] = dict(lockstep=min(lock.agree), dlogit=lock.max_dlogit,
+                          demb=lock.max_demb, unexplained=lock.unexplained,
+                          masks_parted=lock.masks_parted,
+                          banks=lock.banks_equal,
+                          whole_video=min(whole) if whole else None)
+        failed = gate_failures(lock)
+        if (failed or len(lock.agree) != 5 * n_var or lock.max_demb >= 1e-3
+                or not lock.banks_equal or not all(lock.banks_equal)
+                or (whole is not None and (len(whole) != 5
+                                           or min(whole) < 0.999))):
+            raise AssertionError(f"{key}: card vs CPU: {agree[key]} {failed}, "
+                                 f"lock-step frames {lock.agree}, whole "
+                                 f"video {whole}")
+        if name == "ensemble":
+            # the same run with the CPU on its own decoder masks: reported,
+            # not gated (a parted top-beta entry moves the logits)
+            own = lockstep_masks(small, seeded(small), make_seq(),
+                                 parity_scores)
+            agree[key + "/own_masks"] = _own_masks(own, gate_failures)
     print(f"phase 4 small parity setting card vs cpu, float32 and mixed "
-          f"matching (min per-frame agreement in lock-step and whole-video "
-          f"runs, max |dlogit|, max |demb|, bank compactions identical): "
-          f"{agree}, took {time.time() - t0:.1f} s", flush=True)
+          f"matching, then the ensemble (every variant's step), each through "
+          f"the gate (min per-frame agreement in lock-step and whole-video "
+          f"runs, max |dlogit|, max |demb|, parted pixels and decoder mask "
+          f"entries that are no near tie, decoder mask entries parted "
+          f"(shared with the CPU in the ensemble's gated runs only), bank "
+          f"compactions identical; '/own_masks': the ensemble with the CPU "
+          f"on its own masks, not gated): {agree}, took "
+          f"{time.time() - t0:.1f} s", flush=True)
 
-    # ---- phase 4b: the chunk step, card graph replays vs CPU eager runs
+    # ---- phase 4b: the chunk step, card graph replays vs CPU eager runs;
+    # the ensemble's also against eager runs on the card (bit for bit)
     t0 = time.time()
     chunked = {}
-    for name in BANK_LAYOUTS:
-        for matching in ("float32", "mixed"):
-            small = parity_config(name, matching).replace(TEST_FRAME_CHUNK=3,
-                                                          MEM_EVERY=3)
-
-            def make_model():
-                return init_random_(AOCNet(small),
-                                    torch.Generator().manual_seed(0))
-
-            lock = lockstep_chunks(small, make_model, SyntheticEval(
-                size=(65, 65), n_seqs=1, n_frames=7)[0], parity_scores)
-            key = f"{name}/{matching}"
-            chunked[key] = dict(lockstep=min(lock.agree),
-                                dlogit=lock.max_dlogit, demb=lock.max_demb,
-                                steps=lock.steps, replays=lock.replays)
-            if not (len(lock.agree) == 6 and min(lock.agree) >= 0.999
-                    and lock.steps == [3, 3] and lock.replays == 2
-                    and lock.max_dlogit < 1e-2 and lock.max_demb < 1e-3):
-                raise AssertionError(f"{key}: chunk lock-step {chunked[key]}, "
-                                     f"frames {lock.agree}")
-    print(f"phase 4b chunk step in lock-step, card graph replays vs cpu eager, "
-          f"7 frames in chunks of 3 (min per-frame agreement, max |dlogit|, "
-          f"max |demb|, steps, replays): {chunked}, took "
-          f"{time.time() - t0:.1f} s", flush=True)
+    cases = [(name, matching, "cpu",
+              parity_config(name, matching).replace(TEST_FRAME_CHUNK=3,
+                                                    MEM_EVERY=3))
+             for name in BANK_LAYOUTS for matching in ("float32", "mixed")]
+    cases += [("ensemble", m, ref, mf_config(m, chunk=3))
+              for m in ("float32", "mixed") for ref in ("cpu", "cuda")]
+    for name, matching, ref, small in cases:
+        shared = name == "ensemble" and ref == "cpu"
+        lock = lockstep_chunks(small, seeded(small), make_seq(7),
+                               parity_scores, ref_device=ref,
+                               share_masks=shared)
+        key = f"{name}/{matching}" + ("/card_eager" if ref == "cuda" else "")
+        chunked[key] = dict(lockstep=min(lock.agree),
+                            dlogit=lock.max_dlogit, demb=lock.max_demb,
+                            unexplained=lock.unexplained,
+                            masks_parted=lock.masks_parted, steps=lock.steps,
+                            replays=lock.replays)
+        failed = gate_failures(lock)
+        if ref == "cuda" and not (lock.agree == [1.0] * 6
+                                  and lock.max_dlogit == 0.0):
+            failed.append("graph replay differs from the eager chunk")
+        if (failed or len(lock.agree) != 6 or lock.steps != [3, 3]
+                or lock.replays != 2 or lock.max_demb >= 1e-3):
+            raise AssertionError(f"{key}: chunk lock-step {chunked[key]} "
+                                 f"{failed}, frames {lock.agree}")
+        if shared:
+            own = lockstep_chunks(small, seeded(small), make_seq(7),
+                                  parity_scores, ref_device=ref)
+            chunked[key + "/own_masks"] = _own_masks(own, gate_failures)
+    print(f"phase 4b chunk step in lock-step, card graph replays vs cpu eager "
+          f"(and, for the ensemble, vs eager on the card), 7 frames in chunks "
+          f"of 3, through the gate (min per-frame agreement, max |dlogit|, "
+          f"max |demb|, parted pixels and mask entries that are no near tie, "
+          f"mask entries parted (shared with the CPU in the ensemble's gated "
+          f"runs only), steps, replays; '/own_masks' as in phase 4, not "
+          f"gated): "
+          f"{chunked}, took {time.time() - t0:.1f} s", flush=True)
 
     kernels = []
     for key, name, src, rep, n in (
@@ -607,6 +712,19 @@ def main() -> int:
             "f32_max_abs_err": rp["max_abs_err"], "f32_ms": rp["ms"],
             "f32_plain_ms": rp["plain_ms"], "f32_bound_ms": rp["bound_ms"],
             "f32_library_ms": rp["library_ms"]}
+        if key in ("global", "local"):
+            rm, rmp = res[(key + "_mf", True)], res[(key + "_mf", False)]
+            entry.update({
+                "ensemble_launches": mf["launches"][name],
+                "ensemble_shape": rm["shape"],
+                "ensemble_max_abs_err": rm["max_abs_err"],
+                "ensemble_ms": rm["ms"], "ensemble_plain_ms": rm["plain_ms"],
+                "ensemble_bound_ms": rm["bound_ms"],
+                "ensemble_library_ms": rm["library_ms"],
+                "ensemble_f32_ms": rmp["ms"],
+                "ensemble_f32_plain_ms": rmp["plain_ms"],
+                "ensemble_f32_bound_ms": rmp["bound_ms"],
+                "ensemble_f32_library_ms": rmp["library_ms"]})
         if key == "flat":
             rf, rfp = res[("flat_fg", True)], res[("flat_fg", False)]
             entry.update({

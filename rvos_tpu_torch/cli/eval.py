@@ -20,8 +20,9 @@ Robust-VOS perturbation to every frame (random draws from ``--seed``);
 ``--jf`` scores the written masks against the annotations (DAVIS J&F,
 with the per-sequence and global CSVs).  The masks are zipped for the
 benchmark servers.  ``--shard_id/--shard_num`` evaluate a round-robin
-share of the sequences.  ``--flip`` and ``--ms`` other than 1.0 (the
-ensemble) are not ported yet.
+share of the sequences.  ``--flip`` and ``--ms`` run the multi-scale +
+flip ensemble (``--ms 1.0 1.15 1.3 --flip`` is the reference's MF
+setting; the long edge is then capped at 800 before scaling).
 """
 
 from __future__ import annotations
@@ -176,10 +177,6 @@ def _write_jf(out_root: str, label_root: str) -> None:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.flip or tuple(args.ms) != (1.0,):
-        raise NotImplementedError("--flip and --ms (the multi-scale/flip "
-                                  "ensemble) are not ported yet (ROADMAP "
-                                  "Queue A item 4)")
     if not (args.synthetic or args.dataset):
         raise SystemExit("name a --dataset (davis2016, davis2017, "
                          "youtubevos, ...) or pass --synthetic")

@@ -6,8 +6,11 @@
 Runs ``engine.lockstep.lockstep_masks`` in the small parity setting of
 ``chip_smoke.py`` phase 4 (65×65, random weights from seed 0) and prints
 one JSON line per frame: the share of pixels whose masks agree, the max
-|Δlogit| of the upsampled logits (valid objects), and ``near_ties``, the
-pixels whose top-two logits on the CPU lie closer than that.  For each
+|Δlogit| of the upsampled logits (valid objects), ``near_ties``, the
+pixels whose top-two logits on the CPU lie closer than that, and
+``unexplained``, the parted pixels that are no such tie
+(``engine.lockstep.margin_gate``, the card checks' gate); the last line
+adds what the run fails of that gate (``gate_failures``).  For each
 pixel where the masks part it adds the card's and the CPU's labels and
 each side's margin ``logit[card label] - logit[CPU label]``, and the
 card's frame computed again from the same arguments four ways: as is,
@@ -91,14 +94,17 @@ def explain(segment, args, ups, global_kernel: str) -> dict:
     """One lock-step frame (``lockstep_masks``' ``on_frame`` arguments):
     the agreement, max |Δlogit|, near ties and, where the masks part,
     each such pixel with the recomputed variants and kernel 2's errors."""
+    from ..engine.lockstep import margin_gate
     from ..ops import matching
     from ..ops.resize import resize_nchw
     got, want = ups
     dl = _dlogit(ups)
     top2 = want.topk(2, dim=0).values
+    max_dlogit, _, unexplained = margin_gate(got, want)
     out = dict(agree=(got.argmax(0) == want.argmax(0)).float().mean().item(),
-               max_dlogit=dl.max().item(),
-               near_ties=int((top2[0] - top2[1] < dl.max()).sum()))
+               max_dlogit=max_dlogit,
+               near_ties=int((top2[0] - top2[1] < max_dlogit).sum()),
+               unexplained=unexplained)
     flips = (got.argmax(0) != want.argmax(0)).nonzero().tolist()
     if not flips:
         return out
@@ -148,7 +154,8 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     from ..data import SyntheticEval
-    from ..engine.lockstep import lockstep_masks, parity_config, parity_scores
+    from ..engine.lockstep import (gate_failures, lockstep_masks,
+                                   parity_config, parity_scores)
     from ..models import AOCNet
     from ..weights import init_random_
 
@@ -168,7 +175,8 @@ def main(argv=None) -> int:
     print(json.dumps(dict(layout=args.layout, matching=args.matching,
                           device=args.device, agree=lock.agree,
                           max_dlogit=lock.max_dlogit,
-                          banks_equal=lock.banks_equal)), flush=True)
+                          banks_equal=lock.banks_equal,
+                          gate_failures=gate_failures(lock))), flush=True)
     return 0
 
 

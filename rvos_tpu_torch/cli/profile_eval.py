@@ -2,13 +2,16 @@
 card (``torch.profiler``), chunked (CUDA graph replays) or frame by frame.
 
     python -m rvos_tpu_torch.cli.profile_eval [--frames 26] [--layout cap0]
-        [--frame_chunk 5] [--size 481 849] [--trace trace.json]
+        [--frame_chunk 5] [--size 481 849] [--ms 1.0 1.15 1.3 --flip]
+        [--trace trace.json]
 
 Runs the main path of ``chip_smoke.py`` (the ``resnet101_aocnet``
 preset, random weights from a seed, a 3-object synthetic video) under
 bank layout ``--layout`` (``configs.BANK_LAYOUTS``) with
 ``TEST_FRAME_CHUNK`` set to ``--frame_chunk`` (default: the preset's;
-1 runs frame by frame).  The steady frames are those after the first
+1 runs frame by frame), and with ``--ms``/``--flip`` the multi-scale
++ flip ensemble (the long edge capped at 800 before scaling, the eval
+CLI's rule).  The steady frames are those after the first
 bank update and the first full chunk, the same frames in both modes
 (from frame 6 at the preset's ``MEM_EVERY`` and chunk of 5).  First it streams the video without the profiler,
 with a CUDA event recorded as each frame's step is issued and no host
@@ -126,6 +129,8 @@ def main(argv=None):
     p.add_argument("--frame_chunk", type=int, default=-1,
                    help="TEST_FRAME_CHUNK (-1: the preset's)")
     p.add_argument("--size", type=int, nargs=2, default=(481, 849))
+    p.add_argument("--ms", nargs="+", type=float, default=[1.0])
+    p.add_argument("--flip", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trace", default="")
     args = p.parse_args(argv)
@@ -142,6 +147,9 @@ def main(argv=None):
     cfg = get_config(args.config, **BANK_LAYOUTS[args.layout])
     if args.frame_chunk > 0:
         cfg = cfg.replace(TEST_FRAME_CHUNK=args.frame_chunk)
+    if args.flip or tuple(args.ms) != (1.0,):
+        cfg = cfg.replace(TEST_FLIP=args.flip, TEST_MULTISCALE=tuple(args.ms),
+                          TEST_MAX_SIZE=800.0)
     model = init_random_(AOCNet(cfg), torch.Generator().manual_seed(args.seed))
     ev = Evaluator(cfg, model, device="cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -149,7 +157,8 @@ def main(argv=None):
                           text=True, timeout=60, check=True).stdout.strip()
     first = max(ev.chunk_n, cfg.MEM_EVERY, 1) + 1    # first steady frame
     print(f"card: {card} | layout {args.layout} | frame chunk {ev.chunk_n} "
-          f"| steady frames {first}-{args.frames - 1}")
+          f"| variants {len(ev.variants.flips)} (scales {cfg.TEST_MULTISCALE}, "
+          f"flip {cfg.TEST_FLIP}) | steady frames {first}-{args.frames - 1}")
 
     def video():
         return SyntheticEval(size=tuple(args.size), n_seqs=1,

@@ -54,19 +54,27 @@ def restrict_size(h: int, w: int, max_size: Optional[float] = 800 * 1.3,
     return snap_16(int(nh * scale)), snap_16(int(nw * scale))
 
 
+def variant_list(flip: bool, multi_scale: Sequence[float]
+                 ) -> List[Tuple[float, bool]]:
+    """(scale, flip) of each eval variant, in ``eval_variants``' order."""
+    return [(s, f) for s in multi_scale
+            for f in ((False, True) if flip else (False,))]
+
+
 def eval_variants(img: np.ndarray, max_size: Optional[float],
                   min_size: Optional[int], flip: bool,
                   multi_scale: Sequence[float]) -> List[Dict]:
     """One resized variant per scale (+ a flip twin per scale when
     ``flip``; flip twins carry the unflipped pixels)."""
     h, w = img.shape[:2]
+    sized = {}
     variants = []
-    for scale in multi_scale:
-        nh, nw = restrict_size(h, w, max_size, min_size, scale)
-        im = _resize_img(img, (nh, nw)) if (nh, nw) != (h, w) else img
-        variants.append({"img": im, "flip": False, "scale": scale})
-        if flip:
-            variants.append({"img": im, "flip": True, "scale": scale})
+    for scale, f in variant_list(flip, multi_scale):
+        if scale not in sized:
+            nh, nw = restrict_size(h, w, max_size, min_size, scale)
+            sized[scale] = (_resize_img(img, (nh, nw))
+                            if (nh, nw) != (h, w) else img)
+        variants.append({"img": sized[scale], "flip": f, "scale": scale})
     return variants
 
 

@@ -1,5 +1,6 @@
 """Streaming evaluator — the RPA (reliable proxy augmentation) loop
-(PyTorch port of ``rvos_tpu/engine/eval.py``, single scale, no flip).
+(PyTorch port of ``rvos_tpu/engine/eval.py``), single scale or the
+multi-scale + flip ensemble.
 
 Per video: frame 0's ground truth fills the pinned bank slot 0; every
 later frame is embedded, matched against the bank and the previous
@@ -13,60 +14,82 @@ bank is a fixed ring of ``TEST_BANK_CAPACITY`` slots; its flattened
 form, compacted by the configured bank layout (``precompact_bank``), is
 rebuilt only when the bank or the object set changes.
 
+The ensemble (``TEST_MULTISCALE``, ``TEST_FLIP``): each frame is resized
+once per scale (``data.transforms.eval_variants``), and a flip twin
+mirrors its scale's frame on the device (a uint8 flip, exact).  Every
+variant keeps its own streaming state — bank, previous frame and labels,
+decoder memory — at its own resolution and orientation; its
+probabilities are flipped back and averaged over the variants, and the
+joint prediction is carried back to each variant by a nearest downscale
+(mirrored for a twin).  One scale alone without flip is the single
+variant of the default path.
+
 The pipeline is the JAX evaluator's default one:
 
 * frames are decoded, perturbed and resized on ``TEST_WORKERS`` threads
   (``data.loader.PrefetchLoader``), ``TEST_H2D_GROUP`` frames per
-  upload when that is above 1;
+  upload when that is above 1, one uint8 block per scale;
 * ``engine.eval_pipeline.Chunker`` buffers them into chunks of
   ``TEST_FRAME_CHUNK`` frames (at most ``MEM_EVERY``), cut right after a
-  memory-update frame and on any change of frame shape, original size,
-  ``obj_valid`` or ``exist_mask``, so the bank is fixed inside a chunk;
-* a full chunk runs the chunk step: one batch-K ``extract_feature``,
-  then for each frame ``segment_frame``, the bilinear upsampling,
-  softmax × exist, argmax, the entropy gate and the nearest downscales,
-  carrying the previous labels and the decoder memory from frame to
-  frame.  On CUDA the step is a ``torch.cuda.CUDAGraph``, captured once
-  per (K, frame shape, original size) of a state and replayed for every
-  full chunk; on the CPU the same function runs eagerly.  Ragged cuts,
-  join frames and ``TEST_FRAME_CHUNK <= 1`` run it one frame at a time,
-  eagerly;
+  memory-update frame and on any change of frame shapes, original size,
+  ``obj_valid`` or ``exist_mask``, so the banks are fixed inside a chunk;
+* a full chunk runs the chunk step: per scale one ``extract_feature``
+  over the chunk's frames and their flip twins, then for each frame and
+  variant ``segment_frame``, the bilinear upsampling and softmax, the
+  flip back and the mean over the variants, × exist, the argmax, the
+  entropy gate and the nearest downscales, carrying each variant's
+  previous labels and decoder memory from frame to frame.  On CUDA the
+  step is a ``torch.cuda.CUDAGraph``, captured once per (K, frame
+  shapes, original size) of a set of states and replayed for every full
+  chunk; on the CPU the same function runs eagerly.  Ragged cuts and
+  ``TEST_FRAME_CHUNK <= 1`` run it one frame at a time, eagerly;
+* a join frame runs alone through the same step, its label spliced into
+  the mask and the confident mask, and every bank appends.  Under
+  ``TEST_FUSED_POSTPROCESS=False`` every frame runs alone this way: the
+  JAX package's host post-processing path computes the same function
+  (it averages the exist-masked probabilities, (Σ p·em)/n where the step
+  takes (Σ p)/n·em, and embeds a flip twin on its own, so the two round
+  apart, within the 99.9 % agreement its tests hold);
 * bank updates and compaction run eagerly between chunks and write into
-  the state's tensors, which are the graph's static inputs;
+  the states' tensors, which are the graph's static inputs;
 * masks leave the card as one copy per block (``D2HBatcher``, grouped by
   ``TEST_D2H_GROUP``) and are remapped and written by a thread
   (``MaskSaver``).
 
-The k-means init scores of frame ``f`` come from a ``torch.Generator``
-seeded with ``KMEANS_SEED + f``, drawn outside the graph, so a chunked
-and a per-frame run see the same draws, unless the caller supplies
-``kmeans_scores``.  ``TEST_FUSED_POSTPROCESS=False`` (the JAX package's
-host post-processing path) and the multi-scale/flip ensemble are not
-ported (ROADMAP Queue A items 4 and 9): they raise.
+The k-means init scores are the JAX evaluator's own draws
+(``ops.prng``: threefry, ``fold_in(PRNGKey(42), frame)``, split over
+the objects, uniform in [0.5, 1)), drawn on the evaluator's device
+outside the graph, a block of frames at a time; every variant of a frame
+reads the same draws, a prefix as long as its bank.  ``kmeans_scores``
+replaces them (tests).  The JAX package's ensemble sharded over devices
+(``TEST_ENSEMBLE_SHARD``) is not ported: here the ensemble runs on one
+device, which is the JAX package's path on one device as well.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..configs import Config
 from ..data.loader import PrefetchLoader
-from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD, eval_variants, frame_u8
+from ..data.transforms import (IMAGENET_MEAN, IMAGENET_STD, eval_variants,
+                               frame_u8, variant_list)
 from ..device import compute_dtype, configure_precision, resolve_device
 from ..models import AOCNet, DecoderMemory, precompact_bank
 from ..ops.entropy import shannon_entropy
-from ..ops.kmeans import draw_init_scores
+from ..ops.prng import kmeans_init_scores
 from ..ops.resize import resize_nchw
 from .eval_pipeline import Chunker, D2HBatcher, MaskSaver
 
 UNCERTAIN_LABEL = 125
-KMEANS_SEED = 42
 PINNED_FRAMES = 3       # pinned upload buffers per frame-block shape
+DRAW_BLOCK = 32         # frames of k-means draws per draw, at most ...
+DRAW_ELEMENTS = 1 << 21  # ... and about this many scores
 
 ScoreFn = Callable[[int, int, int], torch.Tensor]
 
@@ -78,19 +101,56 @@ def one_hot(lab: torch.Tensor, n: int, dtype) -> torch.Tensor:
 
 
 class ChunkIO(NamedTuple):
-    """What the chunk step reads and writes besides the state."""
-    frames: torch.Tensor    # [K, H, W, 3] uint8
-    scores: torch.Tensor    # [K, O, R] k-means init scores
+    """What the chunk step reads and writes besides the states."""
+    frames: Tuple[torch.Tensor, ...]   # per scale: [K, H, W, 3] uint8
+    scores: torch.Tensor    # [K, O, R] k-means init scores (R ≥ each bank)
     ov: torch.Tensor        # [O] obj_valid
     em: torch.Tensor        # [O] exist_mask
     preds: torch.Tensor     # [K, H0, W0] uint8 (output)
 
+    def copy_to(self, device) -> "ChunkIO":
+        """Copies of the inputs on ``device`` and a fresh output."""
+        return ChunkIO(tuple(t.to(device, copy=True) for t in self.frames),
+                       *(t.to(device, copy=True)
+                         for t in (self.scores, self.ov, self.em)),
+                       torch.empty(self.preds.shape, dtype=self.preds.dtype,
+                                   device=device))
+
+
+class Variants(NamedTuple):
+    """The eval variants of a config: ``flips[v]`` per variant in
+    ``eval_variants``' order, and the scale groups as lists of variant
+    indices, each group one frame size (the JAX evaluator's grouping by
+    scale)."""
+    flips: Tuple[bool, ...]
+    groups: Tuple[Tuple[int, ...], ...]
+
+    @staticmethod
+    def of(cfg: Config) -> "Variants":
+        layout = variant_list(cfg.TEST_FLIP, cfg.TEST_MULTISCALE)
+        groups: Dict[float, List[int]] = {}
+        for v, (scale, _) in enumerate(layout):
+            groups.setdefault(scale, []).append(v)
+        return Variants(tuple(f for _, f in layout),
+                        tuple(tuple(m) for m in groups.values()))
+
+    def group_frames(self, variants: List[Dict]) -> Tuple[np.ndarray, ...]:
+        """Per group, the uint8 frame of its unflipped member (the twin's
+        mirror is made on the device)."""
+        return tuple(frame_u8(variants[next(v for v in m
+                                            if not self.flips[v])]["img"])
+                     for m in self.groups)
+
+    def group_of(self, v: int) -> int:
+        return next(g for g, m in enumerate(self.groups) if v in m)
+
 
 class _SeqState:
-    """Streaming state of a video at one embedding size.  Its tensors are
-    the chunk graphs' static inputs, so every update writes into them in
-    place; the evaluator keeps one per size and reuses it video after
-    video, with the graphs captured on it."""
+    """Streaming state of a video for one variant at one embedding size.
+    Its tensors are the chunk graphs' static inputs, so every update
+    writes into them in place; the evaluator keeps one per (variant,
+    size) and reuses it video after video, with the graphs captured on
+    the first variant's state."""
 
     def __init__(self, cfg: Config, h: int, w: int, c: int, dtype, device):
         cap, o = cfg.TEST_BANK_CAPACITY, cfg.MODEL_MAX_OBJ_NUM
@@ -187,34 +247,62 @@ class _PinnedFrames:
         self._ring[tuple(buf.shape)][-1][1] = done
 
 
-class _PrepView:
-    """Frame prep on the loader's threads: the eval resize (single
-    scale) and the uint8 frame the step uploads."""
+class _Draws:
+    """The default k-means init scores (``ops.prng``), drawn on the
+    evaluator's device a block of frames at a time — one hash over
+    [frames, O, R] instead of one per frame — and sliced per step."""
 
-    def __init__(self, dataset, cfg: Config):
+    def __init__(self, n_obj: int, device):
+        self.n_obj = n_obj
+        self.device = device
+        self.lo = 0
+        self.table: Optional[torch.Tensor] = None     # [B, O, R]
+
+    def take(self, frames: Sequence[int], n_rows: int) -> torch.Tensor:
+        """[len(frames), O, n_rows] for consecutive frame indices."""
+        f0, k = frames[0], len(frames)
+        t = self.table
+        if (t is None or not self.lo <= f0 <= f0 + k <= self.lo + t.shape[0]
+                or n_rows > t.shape[2]):
+            n = max(k, min(DRAW_BLOCK, DRAW_ELEMENTS // (self.n_obj * n_rows)))
+            self.lo = f0
+            t = self.table = kmeans_init_scores(range(f0, f0 + n), self.n_obj,
+                                                n_rows, self.device)
+        return t[f0 - self.lo:f0 - self.lo + k, :, :n_rows]
+
+
+class _PrepView:
+    """Frame prep on the loader's threads: the eval resize of each scale
+    and, per scale group, the uint8 frame the step uploads
+    (``sample["frames"]``)."""
+
+    def __init__(self, dataset, cfg: Config, variants: Variants):
         self.dataset = dataset
         self.cfg = cfg
+        self.variants = variants
 
     def __len__(self):
         return len(self.dataset)
 
     def __getitem__(self, i):
+        cfg = self.cfg
         sample = self.dataset[i]
-        (var,) = eval_variants(sample["current_img"], self.cfg.TEST_MAX_SIZE,
-                               self.cfg.TEST_MIN_SIZE, False, (1.0,))
-        sample["frame"] = frame_u8(var["img"])
+        sample["frames"] = self.variants.group_frames(eval_variants(
+            sample["current_img"], cfg.TEST_MAX_SIZE, cfg.TEST_MIN_SIZE,
+            cfg.TEST_FLIP, cfg.TEST_MULTISCALE))
         return sample
 
 
 class _PrepGroupView:
     """``group`` consecutive frames per loader item (the JAX
     ``_EvalPrepGroupView``): prepared as ``_PrepView`` does, then stacked
-    into one uint8 block (pinned when it goes to a card) that the
-    consumer uploads with one copy; a group whose frames differ in shape
-    keeps them apart."""
+    per scale into one uint8 block (pinned when it goes to a card) that
+    the consumer uploads with one copy; a group whose frames differ in
+    shape keeps them apart."""
 
-    def __init__(self, dataset, cfg: Config, group: int, pin: bool):
-        self.view = _PrepView(dataset, cfg)
+    def __init__(self, dataset, cfg: Config, variants: Variants, group: int,
+                 pin: bool):
+        self.view = _PrepView(dataset, cfg, variants)
         self.group = group
         self.pin = pin
 
@@ -225,12 +313,15 @@ class _PrepGroupView:
         lo = g * self.group
         samples = [self.view[i]
                    for i in range(lo, min(lo + self.group, len(self.view)))]
-        block = None
-        if len({s["frame"].shape for s in samples}) == 1:
-            block = torch.empty((len(samples),) + samples[0]["frame"].shape,
-                                dtype=torch.uint8, pin_memory=self.pin)
-            block.numpy()[:] = np.stack([s["frame"] for s in samples])
-        return samples, block
+        blocks = None
+        if len({tuple(f.shape for f in s["frames"]) for s in samples}) == 1:
+            blocks = []
+            for j, f in enumerate(samples[0]["frames"]):
+                block = torch.empty((len(samples),) + f.shape,
+                                    dtype=torch.uint8, pin_memory=self.pin)
+                block.numpy()[:] = np.stack([s["frames"][j] for s in samples])
+                blocks.append(block)
+        return samples, blocks
 
 
 class Evaluator:
@@ -247,20 +338,13 @@ class Evaluator:
         """``model`` is moved to ``device`` (CUDA unless "cpu") and the
         eval compute dtype in place.  ``kmeans_scores(frame_idx, n_obj,
         n_rows)`` optionally supplies each frame's ``[O, R]`` k-means
-        init scores."""
+        init scores, ``R`` the largest bank of the variants (a smaller
+        bank reads a prefix, as it does of the default draws)."""
         for f in self._MODEL_CFG_FIELDS:
             if getattr(model.cfg, f) != getattr(cfg, f):
                 raise ValueError(f"Evaluator cfg.{f}={getattr(cfg, f)!r} but "
                                  f"the model was built with "
                                  f"{getattr(model.cfg, f)!r}")
-        if cfg.TEST_FLIP or tuple(cfg.TEST_MULTISCALE) != (1.0,):
-            raise NotImplementedError(
-                "the multi-scale/flip ensemble is not ported yet (ROADMAP "
-                "Queue A item 4)")
-        if not cfg.TEST_FUSED_POSTPROCESS:
-            raise NotImplementedError(
-                "TEST_FUSED_POSTPROCESS=False, the host post-processing "
-                "path, is not ported (ROADMAP Queue A item 9)")
         self.cfg = cfg
         self.device = resolve_device(device)
         configure_precision(cfg)
@@ -268,10 +352,13 @@ class Evaluator:
         self.model = model.to(device=self.device, dtype=self.dtype).eval()
         self.mem_every = cfg.MEM_EVERY
         self.unc_ratio = cfg.UNC_RATIO
-        self.chunk_n = max(1, cfg.TEST_FRAME_CHUNK)
+        self.variants = Variants.of(cfg)
+        self.fused = cfg.TEST_FUSED_POSTPROCESS
+        self.chunk_n = max(1, cfg.TEST_FRAME_CHUNK) if self.fused else 1
         if self.mem_every > 0:
             self.chunk_n = min(self.chunk_n, self.mem_every)
         self.kmeans_scores = kmeans_scores
+        self._draws = _Draws(cfg.MODEL_MAX_OBJ_NUM, self.device)
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
         self._states: Dict[Tuple, _SeqState] = {}
@@ -281,7 +368,7 @@ class Evaluator:
         self._pool = torch.cuda.graph_pool_handle() if on_card else None
         self.captures = 0            # CUDA graphs captured
         self.replays = 0             # chunk graph replays
-        self._last_state: Optional[_SeqState] = None   # introspection
+        self._last_states: List[_SeqState] = []   # introspection
 
     def _mem_boundary(self, frame_idx: int) -> bool:
         return self.mem_every > 0 and frame_idx % self.mem_every == 0
@@ -294,14 +381,15 @@ class Evaluator:
             self._vecs[key] = torch.from_numpy(arr.copy()).to(self.device)
         return self._vecs[key]
 
-    def _init_scores(self, frame_idx: int, n_rows: int) -> torch.Tensor:
+    def init_scores(self, frames: Sequence[int], n_rows: int) -> torch.Tensor:
+        """The k-means init scores of consecutive ``frames`` → [K, O,
+        n_rows] on the device."""
+        if self.kmeans_scores is None:
+            return self._draws.take(frames, n_rows)
         o = self.cfg.MODEL_MAX_OBJ_NUM
-        if self.kmeans_scores is not None:
-            s = self.kmeans_scores(frame_idx, o, n_rows)
-            return torch.as_tensor(s, dtype=torch.float32, device=self.device)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(KMEANS_SEED + frame_idx)
-        return draw_init_scores(o, n_rows, gen, self.device)
+        return torch.stack([torch.as_tensor(self.kmeans_scores(f, o, n_rows),
+                                            dtype=torch.float32)
+                            for f in frames]).to(self.device)
 
     def _upload(self, frames: List, out: torch.Tensor) -> None:
         """Frames (host uint8 [H, W, 3], or slices of an uploaded group
@@ -319,25 +407,52 @@ class Evaluator:
             out.copy_(host, non_blocking=True)
             self._pinned.give(host)
 
+    def _upload_groups(self, items: List[Tuple]) -> Tuple[torch.Tensor, ...]:
+        """Per scale group, the frames of ``items`` (each a tuple of group
+        frames) as one fresh [K, H, W, 3] uint8 tensor on the device."""
+        out = []
+        for g in range(len(self.variants.groups)):
+            x = torch.empty((len(items),) + tuple(items[0][g].shape),
+                            dtype=torch.uint8, device=self.device)
+            self._upload([it[g] for it in items], x)
+            out.append(x)
+        return tuple(out)
+
     def _embed(self, frames: torch.Tensor):
         """uint8 [K, H, W, 3] → (embeddings [K, h, w, C], low-level)."""
         x = (frames.float() / 255.0 - self._mean) / self._std
         return self.model.extract_feature(x.to(self.dtype))
 
-    def _start(self, frame, gt: np.ndarray) -> _SeqState:
-        """Frame 0: its embedding and ground truth open the bank."""
-        x = torch.empty((1,) + tuple(frame.shape), dtype=torch.uint8,
-                        device=self.device)
-        self._upload([frame], x)
-        emb = self._embed(x)[0][0]
-        h, w, c = emb.shape
-        st = self._states.get((h, w, c))
-        if st is None:
-            st = self._states[(h, w, c)] = _SeqState(
-                self.cfg, h, w, c, self.dtype, self.device)
+    def _variant_frame(self, xs: Tuple[torch.Tensor, ...], v: int):
+        """Variant ``v``'s frames from the uploaded group frames: its
+        scale's, mirrored for a flip twin."""
+        x = xs[self.variants.group_of(v)]
+        return x.flip(2) if self.variants.flips[v] else x
+
+    def _downscale(self, lab: torch.Tensor, v: int, st: _SeqState):
+        """A full-size label map [H0, W0] at variant ``v``'s resolution and
+        orientation (nearest)."""
+        if self.variants.flips[v]:
+            lab = lab.flip(1)
+        return resize_nchw(lab, tuple(st.prev_lab.shape), "nearest")
+
+    def _start(self, frames, gt: np.ndarray) -> List[_SeqState]:
+        """Frame 0: each variant's embedding and the ground truth (at the
+        variant's resolution and orientation) open its bank."""
+        xs = self._upload_groups([frames])
         lab = torch.from_numpy(gt.astype(np.int64)).to(self.device)
-        st.start(emb, resize_nchw(lab, (h, w), "nearest"))
-        return st
+        states = []
+        for v, flip in enumerate(self.variants.flips):
+            emb = self._embed(self._variant_frame(xs, v))[0][0]
+            h, w, c = emb.shape
+            st = self._states.get((v, h, w, c))
+            if st is None:
+                st = self._states[(v, h, w, c)] = _SeqState(
+                    self.cfg, h, w, c, self.dtype, self.device)
+            st.start(emb, resize_nchw(lab.flip(1) if flip else lab, (h, w),
+                                      "nearest"))
+            states.append(st)
+        return states
 
     def _ensure_flat(self, st: _SeqState, ov_np: np.ndarray):
         """Recompact the bank when it or the object set changed, into the
@@ -361,122 +476,179 @@ class Evaluator:
                 dst.copy_(src)
         st.flat_key = key
 
-    def chunk_step(self, io: ChunkIO, st: _SeqState, ori_hw,
-                   join: Optional[torch.Tensor] = None) -> None:
-        """The K frames of ``io`` from state ``st``: writes their uint8
-        masks into ``io.preds``, advances ``st.prev_emb``,
-        ``st.prev_lab`` and ``st.memory`` in place, and leaves the last
-        frame's confident mask in ``st.conf``.  ``join`` [H0, W0] is
-        spliced into a single frame's masks.  What a CUDA graph of this
-        function captures."""
+    def _segment(self, st: _SeqState, emb, low, prev_emb, prev_lab, ov,
+                 memory, scores, ref_onehot=None):
+        """One variant's ``segment_frame`` from its state → (logits
+        [O, h, w], decoder memory).  ``scores`` [O, R'] is read as a
+        prefix as long as the variant's bank."""
         o = self.cfg.MODEL_MAX_OBJ_NUM
-        embs, lows = self._embed(io.frames)
-        h, w = embs.shape[1:3]
-        prev_embs = torch.cat([st.prev_emb[None], embs[:-1]])
-        ref_onehot = one_hot(st.ref_lab, o, self.dtype)
         flat_emb, flat_lab, tile_obj = st.flat
-        p_lab, memory = st.prev_lab, st.memory
-        for k in range(embs.shape[0]):
-            logits, memory = self.model.segment_frame(
-                embs[k], lows[k], st.ref_emb, ref_onehot, st.slot_valid,
-                prev_embs[k], one_hot(p_lab, o, self.dtype), io.ov, memory,
-                io.scores[k], flat_emb, flat_lab, tile_obj)
-            lg = resize_nchw(logits.float(), ori_hw, "bilinear")
-            probs = torch.softmax(lg, dim=0) * io.em[:, None, None]
-            pred = probs.argmax(dim=0)
-            unc = shannon_entropy(probs, io.em)
-            if join is not None:
-                pred = torch.where(join == 0, pred, join)
-            conf = torch.where(unc > self.unc_ratio,
-                               torch.full_like(pred, UNCERTAIN_LABEL), pred)
-            if join is not None:
-                conf = torch.where(join == 0, conf, join)
-            p_lab = resize_nchw(pred, (h, w), "nearest")
-            io.preds[k].copy_(pred)
-        for dst, src in zip(st.carried(), (embs[-1], p_lab, *memory)):
-            dst.copy_(src)
-        st.conf.copy_(resize_nchw(conf, (h, w), "nearest"))
+        if ref_onehot is None:
+            ref_onehot = one_hot(st.ref_lab, o, self.dtype)
+        return self.model.segment_frame(
+            emb, low, st.ref_emb, ref_onehot, st.slot_valid, prev_emb,
+            one_hot(prev_lab, o, self.dtype), ov, memory,
+            scores[:, :flat_emb.shape[0]], flat_emb, flat_lab, tile_obj)
 
-    def _new_io(self, st: _SeqState, k_n: int, frame_hw, ori_hw) -> ChunkIO:
+    def _probs(self, logits, ori_hw, v: int) -> torch.Tensor:
+        """Logits → probabilities at the original size, orientation
+        restored."""
+        p = torch.softmax(resize_nchw(logits.float(), ori_hw, "bilinear"),
+                          dim=0)
+        return p.flip(2) if self.variants.flips[v] else p
+
+    def _gate(self, probs, em, join=None):
+        """(argmax, confident mask): pixels above ``UNC_RATIO`` entropy
+        become 125; ``join`` [H0, W0], when given, is spliced into both."""
+        pred = probs.argmax(dim=0)
+        unc = shannon_entropy(probs, em)
+        if join is not None:
+            pred = torch.where(join == 0, pred, join)
+        conf = torch.where(unc > self.unc_ratio,
+                           torch.full_like(pred, UNCERTAIN_LABEL), pred)
+        if join is not None:
+            conf = torch.where(join == 0, conf, join)
+        return pred, conf
+
+    def chunk_step(self, io: ChunkIO, sts: List[_SeqState], ori_hw,
+                   join: Optional[torch.Tensor] = None) -> None:
+        """The K frames of ``io`` from the variants' states ``sts``: writes
+        their uint8 masks into ``io.preds``, advances each state's
+        ``prev_emb``, ``prev_lab`` and ``memory`` in place, and leaves the
+        last frame's confident mask (at the variant's resolution) in its
+        ``conf``.  ``join`` [H0, W0] is spliced into the mask and the
+        confident mask (a one-frame step).  The JAX ``_step_fused_chunk``
+        for one variant and ``_step_ensemble_chunk`` for several; what a
+        CUDA graph of this function captures."""
+        o = self.cfg.MODEL_MAX_OBJ_NUM
+        flips = self.variants.flips
+        n_var = len(sts)
+        k_n = io.frames[0].shape[0]
+        embs, lows = [None] * n_var, [None] * n_var
+        for g, members in enumerate(self.variants.groups):
+            x = io.frames[g]
+            if len(members) > 1 or flips[members[0]]:
+                x = torch.cat([x.flip(2) if flips[v] else x for v in members])
+            e, low = self._embed(x)
+            for j, v in enumerate(members):
+                embs[v] = e[j * k_n:(j + 1) * k_n]
+                lows[v] = low[j * k_n:(j + 1) * k_n]
+        prev_embs = [torch.cat([st.prev_emb[None], embs[v][:-1]])
+                     for v, st in enumerate(sts)]
+        ref_onehots = [one_hot(st.ref_lab, o, self.dtype) for st in sts]
+        p_labs = [st.prev_lab for st in sts]
+        mems = [st.memory for st in sts]
+        for k in range(k_n):
+            total = None
+            for v in range(n_var):
+                logits, mems[v] = self._segment(
+                    sts[v], embs[v][k], lows[v][k], prev_embs[v][k],
+                    p_labs[v], io.ov, mems[v], io.scores[k], ref_onehots[v])
+                p = self._probs(logits, ori_hw, v)
+                total = p if total is None else total + p
+            if n_var > 1:
+                total = total / n_var
+            pred, conf = self._gate(total * io.em[:, None, None], io.em, join)
+            p_labs = [self._downscale(pred, v, st) for v, st in enumerate(sts)]
+            io.preds[k].copy_(pred)
+        for v, st in enumerate(sts):
+            for dst, src in zip(st.carried(),
+                                (embs[v][-1], p_labs[v], *mems[v])):
+                dst.copy_(src)
+            st.conf.copy_(self._downscale(conf, v, st))
+
+    def _new_io(self, sts: List[_SeqState], shapes, ori_hw) -> ChunkIO:
+        """Static buffers of a chunk graph; ``shapes`` [K, H, W, 3] per
+        scale group."""
         o, dev = self.cfg.MODEL_MAX_OBJ_NUM, self.device
+        k_n = shapes[0][0]
+        n_rows = max(st.flat[0].shape[0] for st in sts)
         return ChunkIO(
-            torch.empty((k_n, *frame_hw, 3), dtype=torch.uint8, device=dev),
-            torch.empty((k_n, o, st.flat[0].shape[0]), device=dev),
+            tuple(torch.empty(sh, dtype=torch.uint8, device=dev)
+                  for sh in shapes),
+            torch.empty((k_n, o, n_rows), device=dev),
             torch.empty(o, device=dev), torch.empty(o, device=dev),
             torch.empty((k_n, *ori_hw), dtype=torch.uint8, device=dev))
 
-    def _capture(self, io: ChunkIO, st: _SeqState, ori_hw):
-        """Capture ``chunk_step`` on ``st`` as a CUDA graph.  A warm-up
+    def _capture(self, io: ChunkIO, sts: List[_SeqState], ori_hw):
+        """Capture ``chunk_step`` on ``sts`` as a CUDA graph.  A warm-up
         run on a side stream first (module loading, kernel attributes and
         cuDNN's choices happen outside capture); the state it advanced is
         put back.  A capture that fails raises."""
-        saved = [t.clone() for t in st.carried()]
+        carried = [t for st in sts for t in st.carried()]
+        saved = [t.clone() for t in carried]
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            self.chunk_step(io, st, ori_hw)
+            self.chunk_step(io, sts, ori_hw)
         cur.wait_stream(side)
-        for t, s in zip(st.carried(), saved):
+        for t, s in zip(carried, saved):
             t.copy_(s)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool,
                               capture_error_mode="thread_local"):
-            self.chunk_step(io, st, ori_hw)
+            self.chunk_step(io, sts, ori_hw)
         self.captures += 1
         return graph
 
-    def run_chunk(self, st: _SeqState, io: ChunkIO, ori_hw,
+    def run_chunk(self, sts: List[_SeqState], io: ChunkIO, ori_hw,
                   join: Optional[torch.Tensor] = None) -> None:
         """One step over the frames of ``io``: for a multi-frame chunk on a
         card a replay of the graph that owns ``io`` (captured at its first
         use), else ``chunk_step`` eagerly."""
-        if self.device.type != "cuda" or io.frames.shape[0] == 1:
-            self.chunk_step(io, st, ori_hw, join)
+        if self.device.type != "cuda" or io.frames[0].shape[0] == 1:
+            self.chunk_step(io, sts, ori_hw, join)
             return
-        g = st.graphs[(tuple(io.frames.shape), tuple(ori_hw))]
+        g = sts[0].graphs[(tuple(tuple(x.shape) for x in io.frames),
+                           tuple(ori_hw))]
         if g.io is not io or join is not None:
-            raise ValueError("a chunk graph replays its own buffers, and "
+            raise ValueError("a chunk graph replays its own buffers and "
                              "joins no label")
         if g.graph is None:
-            g.graph = self._capture(io, st, ori_hw)
+            g.graph = self._capture(io, sts, ori_hw)
         g.graph.replay()
         self.replays += 1
 
-    def _io_for(self, st: _SeqState, k_n: int, frame_hw, ori_hw) -> ChunkIO:
-        """The buffers of a step: a graph's own static ones for a
-        multi-frame chunk on a card, else fresh ones."""
-        if self.device.type != "cuda" or k_n == 1:
-            return self._new_io(st, k_n, frame_hw, ori_hw)
-        key = ((k_n, *frame_hw, 3), tuple(ori_hw))
-        if key not in st.graphs:
-            st.graphs[key] = _ChunkGraph(self._new_io(st, k_n, frame_hw,
-                                                      ori_hw))
-        return st.graphs[key].io
-
-    def _step(self, st: _SeqState, buf, ctx, join=None) -> torch.Tensor:
-        """Frames ``buf`` (``(index, name, frame)``) as one step → their
-        masks [K, H0, W0] uint8 (a graph's output buffer: copy before the
-        next step)."""
-        frames = [p for _, _, p in buf]
-        io = self._io_for(st, len(buf), tuple(frames[0].shape[:2]),
-                          ctx["ori_hw"])
-        self._upload(frames, io.frames)
-        for k, (f, _, _) in enumerate(buf):
-            io.scores[k].copy_(self._init_scores(f, io.scores.shape[-1]))
-        io.ov.copy_(self._dev_vec(ctx["ov"]))
-        io.em.copy_(self._dev_vec(ctx["em"]))
-        self.run_chunk(st, io, ctx["ori_hw"], join)
+    def _step(self, sts: List[_SeqState], buf, ctx,
+              join: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Frames ``buf`` (``(index, name, group frames)``) as one step →
+        their masks [K, H0, W0] uint8 (a graph's output buffer: copy
+        before the next step).  A multi-frame chunk on a card fills the
+        static buffers of its graph (the states' set of graphs lives on
+        the first variant's state); anything else runs on fresh ones."""
+        items = [p for _, _, p in buf]
+        fs = [f for f, _, _ in buf]
+        ori_hw = ctx["ori_hw"]
+        n_rows = max(st.flat[0].shape[0] for st in sts)
+        scores = self.init_scores(fs, n_rows)
+        ov, em = self._dev_vec(ctx["ov"]), self._dev_vec(ctx["em"])
+        if self.device.type != "cuda" or len(buf) == 1:
+            io = ChunkIO(self._upload_groups(items), scores, ov, em,
+                         torch.empty((len(buf), *ori_hw), dtype=torch.uint8,
+                                     device=self.device))
+        else:
+            shapes = tuple((len(buf), *x.shape) for x in items[0])
+            key = (shapes, tuple(ori_hw))
+            if key not in sts[0].graphs:
+                sts[0].graphs[key] = _ChunkGraph(
+                    self._new_io(sts, shapes, ori_hw))
+            io = sts[0].graphs[key].io
+            for g, x in enumerate(io.frames):
+                self._upload([it[g] for it in items], x)
+            for dst, src in zip(io[1:4], (scores, ov, em)):
+                dst.copy_(src)
+        self.run_chunk(sts, io, ori_hw, join)
         return io.preds
 
     def _grouped(self, groups):
         """Samples of a grouped loader, each group's frames uploaded as one
-        block (a group of mixed shapes frame by frame)."""
-        for samples, block in groups:
-            if block is not None:
-                dev = block.to(self.device, non_blocking=True)
+        block per scale (a group of mixed shapes frame by frame)."""
+        for samples, blocks in groups:
+            if blocks is not None:
+                dev = [b.to(self.device, non_blocking=True) for b in blocks]
                 for j, s in enumerate(samples):
-                    s["frame"] = dev[j]
+                    s["frames"] = tuple(d[j] for d in dev)
             yield from samples
 
     @torch.no_grad()
@@ -498,28 +670,34 @@ class Evaluator:
         group = max(1, cfg.TEST_H2D_GROUP)
         if group > 1:
             loader = self._grouped(PrefetchLoader(
-                _PrepGroupView(seq, cfg, group, self.device.type == "cuda"),
+                _PrepGroupView(seq, cfg, self.variants, group,
+                               self.device.type == "cuda"),
                 num_workers=workers, prefetch=2))
         else:
-            loader = PrefetchLoader(_PrepView(seq, cfg), num_workers=workers,
-                                    prefetch=3)
+            loader = PrefetchLoader(_PrepView(seq, cfg, self.variants),
+                                    num_workers=workers, prefetch=3)
         saver = MaskSaver(save_dir, remap=getattr(seq, "label_backward", None))
         timing = {"loader_wait": 0.0, "flat": 0.0, "step_dispatch": 0.0,
                   "flush": 0.0, "drain": 0.0}
         d2h = D2HBatcher(saver, max(group, cfg.TEST_D2H_GROUP))
         callback = frame_callback or (lambda f: None)
-        st: Optional[_SeqState] = None
+        states: List[_SeqState] = []
 
         def ensure_flat(ov_np):
             t0 = time.time()
-            self._ensure_flat(st, ov_np)
+            for st in states:
+                self._ensure_flat(st, ov_np)
             timing["flat"] += time.time() - t0
+
+        def add_refs():
+            for st in states:
+                st.add_ref(st.prev_emb, st.conf)
 
         def run_full(buf, ctx):
             ensure_flat(ctx["ov"])
-            preds = self._step(st, buf, ctx)
+            preds = self._step(states, buf, ctx)
             if self._mem_boundary(buf[-1][0]):
-                st.add_ref(st.prev_emb, st.conf)
+                add_refs()
             d2h.append(tuple(n for _, n, _ in buf), preds)
             for f, _, _ in buf:
                 callback(f)
@@ -527,9 +705,9 @@ class Evaluator:
         def run_ragged(buf, ctx):
             ensure_flat(ctx["ov"])
             for item in buf:
-                preds = self._step(st, [item], ctx)
+                preds = self._step(states, [item], ctx)
                 if self._mem_boundary(item[0]):
-                    st.add_ref(st.prev_emb, st.conf)
+                    add_refs()
                 d2h.append((item[1],), preds)
                 callback(item[0])
 
@@ -560,8 +738,9 @@ class Evaluator:
                                     f"object id {lid} >= MODEL_MAX_OBJ_NUM="
                                     f"{o}")
                             label_all.append(lid)
+            frames = sample["frames"]
             if frame_idx == 0:
-                st = self._start(sample["frame"], gt)
+                states = self._start(frames, gt)
                 callback(0)
                 continue
             ov_np = (np.arange(o) <= int(meta["obj_num"])).astype(np.float32)
@@ -569,9 +748,9 @@ class Evaluator:
             em_np[label_all] = 1.0
             n_frames += 1
             if gt is None:
-                chunker.push(frame_idx, meta["current_name"], sample["frame"],
-                             tuple(sample["frame"].shape[:2]), ov_np, em_np,
-                             ori_hw)
+                chunker.push(frame_idx, meta["current_name"], frames,
+                             tuple(tuple(f.shape[:2]) for f in frames),
+                             ov_np, em_np, ori_hw)
                 continue
             # a join frame runs alone, after the frames buffered before it
             chunker.flush()
@@ -579,9 +758,9 @@ class Evaluator:
             ensure_flat(ov_np)
             join = torch.from_numpy(gt.astype(np.int64)).to(self.device)
             ctx = {"ov": ov_np, "em": em_np, "ori_hw": ori_hw}
-            item = (frame_idx, meta["current_name"], sample["frame"])
-            preds = self._step(st, [item], ctx, join)
-            st.add_ref(st.prev_emb, st.conf)
+            item = (frame_idx, meta["current_name"], frames)
+            preds = self._step(states, [item], ctx, join)
+            add_refs()
             d2h.append((item[1],), preds)
             timing["step_dispatch"] += time.time() - t1
             callback(frame_idx)
@@ -592,7 +771,7 @@ class Evaluator:
         results = saver.drain()
         timing["drain"] = time.time() - t0
         seq_time = time.time() - t_wall
-        self._last_state = st
+        self._last_states = states
         return {"results": results, "frames": n_frames, "time": seq_time,
                 "fps": n_frames / max(seq_time, 1e-6),
                 "fps_ref": n_frames / max(seq_time - timing["loader_wait"],

@@ -134,12 +134,21 @@ class ConditioningLayer(nn.Module):
         if z.dim() == 2:
             return self.mlp_layer(z)
         o, c, h, w = z.shape
-        phi = self.phi_layer(z).reshape(o, h * w)
-        beta_rank = max(1, int(self.beta_percentage * h * w))
-        kth = torch.topk(phi, beta_rank, dim=-1).values[:, -1:]
-        mask = (phi > kth).to(z.dtype)                   # strict >
+        mask = self.top_beta(self.saliency(z))
         pooled = (z.reshape(o, c, h * w) * mask[:, None]).sum(-1) / (h * w)
         return self.mlp_layer(pooled)
+
+    def saliency(self, z):
+        """φ of a spatial input [O, C, H, W] → [O, H·W]."""
+        o, _, h, w = z.shape
+        return self.phi_layer(z).reshape(o, h * w)
+
+    def top_beta(self, phi):
+        """The top-β mask of φ [O, N]: 1 where φ is above its β-th largest
+        value (strictly, as the reference), per object."""
+        beta_rank = max(1, int(self.beta_percentage * phi.shape[-1]))
+        kth = torch.topk(phi, beta_rank, dim=-1).values[:, -1:]
+        return (phi > kth).to(phi.dtype)
 
 
 class ConditioningBlock(nn.Module):

@@ -8,11 +8,9 @@ centroids), then Lloyd iterations as matmuls.  Two result banks: the
 final centroids and the final-assignment cluster means.
 
 The init scores are an argument, ``[O, R]`` uniform draws in
-[0.5, 1.0) before the foreground mask.  ``jax.random`` cannot be
-reproduced in torch, so callers draw them from an explicit
-``torch.Generator`` (``draw_init_scores``) and tests inject the JAX
-draws.  Assignment and update products are plain ``torch.matmul``, as
-the JAX package leaves them to XLA.
+[0.5, 1.0) before the foreground mask; the evaluator draws the JAX
+package's own (``ops.prng``).  Assignment and update products are plain
+``torch.matmul``, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -29,13 +27,6 @@ class ClusterBanks(NamedTuple):
     cent_valid: torch.Tensor   # [O, K] bool
     means: torch.Tensor        # [O, K, C]
     mean_valid: torch.Tensor   # [O, K] bool
-
-
-def draw_init_scores(n_obj: int, n_rows: int, generator: torch.Generator,
-                     device) -> torch.Tensor:
-    """[O, R] uniform init scores in [0.5, 1.0) from ``generator``."""
-    u = torch.rand((n_obj, n_rows), generator=generator, device=device)
-    return 0.5 + 0.5 * u
 
 
 def _masked_kmeans(points: torch.Tensor, weights: torch.Tensor,

@@ -97,12 +97,23 @@ def test_cli_loads_reference_checkpoint(tmp_path):
 
 def test_cli_refuses_what_it_cannot_run(tmp_path):
     """A checkpoint that does not load is an error, not random weights;
-    a shard id outside the shard count exits; the ensemble flags name the
-    queue item that ports them."""
-    for argv in (["--flip"], ["--ms", "1.0", "1.5"]):
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
-            _run(tmp_path, "c", *argv)
+    a shard id outside the shard count exits."""
     with pytest.raises(FileNotFoundError):
         _run(tmp_path, "a", "--ckpt_path", str(tmp_path / "missing.pth"))
     with pytest.raises(SystemExit):
         _run(tmp_path, "b", "--shard_id", "2", "--shard_num", "2")
+
+
+def test_cli_runs_the_ensemble(tmp_path, capsys):
+    """``--flip --ms 1.0 0.8``: the multi-scale + flip ensemble writes a
+    mask per frame of its shard, at the frames' size, and they differ
+    from the single-scale run's."""
+    common = ("--seed", "1", "--shard_id", "1", "--shard_num", "3")
+    mf = _run(tmp_path, "mf", "--flip", "--ms", "1.0", "0.8", *common)
+    single = _run(tmp_path, "single", *common)
+    assert "Total FPS" in capsys.readouterr().out
+    assert list(mf) == list(single) == ["test2"]
+    assert len(mf["test2"]) == 9 and (tmp_path / "mf.zip").exists()
+    for f, mask in mf["test2"].items():
+        assert mask.shape == (129, 129)
+    assert any((single["test2"][f] != m).any() for f, m in mf["test2"].items())

@@ -179,13 +179,56 @@ def test_lockstep_masks_on_one_device_agree_exactly():
         return torch.full((n_obj, n_rows), 0.75) + 1e-4 * torch.arange(n_rows)
 
     compact = eval_mod.precompact_bank
-    agree, max_dlogit, max_demb, banks = lockstep_masks(
+    res = lockstep_masks(
         cfg, lambda: init_random_(TAOCNet(cfg), torch.Generator().manual_seed(2)),
         TSyntheticEval(size=SIZE, n_seqs=1, n_frames=4)[0], scores,
         device="cpu")
-    assert agree == [1.0, 1.0, 1.0] and max_dlogit == max_demb == 0.0
-    assert banks == [True, True]
+    assert res.agree == [1.0, 1.0, 1.0]
+    assert res.max_dlogit == res.max_demb == 0.0
+    assert res.banks_equal == [True, True]
+    assert res.unexplained == res.masks_parted == 0
     assert eval_mod.precompact_bank is compact
+
+
+@pytest.mark.parametrize("share", [True, False], ids=["shared", "own"])
+def test_lockstep_shares_the_decoder_masks(share):
+    """The ensemble in lock-step on the CPU, the evaluator's saliency
+    weights moved by 1e-5 of their size: some top-β mask entries part,
+    each a near tie.  Where the reference goes on with the evaluator's
+    masks, the logits stay within the gate; where it keeps its own, the
+    parted entries move its logits past the gate's |Δlogit| bound."""
+    from rvos_tpu_torch.engine.lockstep import (gate_failures, lockstep_masks,
+                                                parity_config, parity_scores)
+    from rvos_tpu_torch.models.layers import ConditioningLayer
+
+    cfg = parity_config("occupancy").replace(
+        TEST_FLIP=True, TEST_MULTISCALE=(1.0, 1.3))
+    made = []
+
+    def make_model():
+        model = init_random_(TAOCNet(cfg), torch.Generator().manual_seed(0))
+        if not made:
+            g = torch.Generator().manual_seed(1)
+            with torch.no_grad():
+                for m in model.modules():
+                    if isinstance(m, ConditioningLayer) and hasattr(
+                            m, "phi_layer"):
+                        w = m.phi_layer.weight
+                        w += 1e-5 * w.abs().max() * torch.randn(
+                            w.shape, generator=g)
+        made.append(model)
+        return model
+
+    res = lockstep_masks(cfg, make_model,
+                         TSyntheticEval(size=(65, 65), n_seqs=1,
+                                        n_frames=6)[0],
+                         parity_scores, device="cpu", share_masks=share)
+    assert len(res.agree) == 20
+    assert res.masks_parted > 0
+    if share:
+        assert res.unexplained == 0 and not gate_failures(res), res
+    else:
+        assert res.max_dlogit >= 1e-2, res
 
 
 @pytest.mark.parametrize("layout", ["occupancy", "cap0"])
@@ -297,7 +340,7 @@ def test_evaluator_bank_ring_and_default_scores():
             TSyntheticEval(size=SIZE, n_seqs=1, n_frames=6)[0],
             frame_callback=log)
         assert appended == list(range(6))
-        st = ev._last_state
+        st = ev._last_states[0]
         assert st.version == 3 and st.ring_ptr == 1     # frames 0, 2, 4
         assert st.slot_valid.tolist() == [1.0, 1.0, 1.0]
         assert set(st.ref_lab[1:].unique().tolist()) <= {0, 1, 2, 125}

@@ -43,7 +43,7 @@ def test_no_jax_or_reference_imports(path):
 # pipeline, loader, datasets, perturbations, metrics): the port keeps
 # its own copies, and the checks here must cover them
 _STANDALONE = ("data/datasets.py", "data/loader.py", "data/perturb.py",
-               "engine/eval.py", "engine/eval_pipeline.py",
+               "engine/eval.py", "engine/eval_pipeline.py", "ops/prng.py",
                "utils/davis_metrics.py", "utils/eval_zip.py")
 
 

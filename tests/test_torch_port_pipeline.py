@@ -226,9 +226,9 @@ def chunked_vs_frames():
         run = ev.run_chunk
         steps[chunk] = []
 
-        def spy(st, io, ori_hw, join=None, _run=run, _steps=steps[chunk]):
-            _steps.append(io.frames.shape[0])
-            return _run(st, io, ori_hw, join)
+        def spy(sts, io, ori_hw, join=None, _run=run, _steps=steps[chunk]):
+            _steps.append(io.frames[0].shape[0])
+            return _run(sts, io, ori_hw, join)
 
         ev.run_chunk = spy
         out[chunk] = ev.evaluate_sequence(_Changing())
@@ -310,7 +310,16 @@ def test_chunk_agreement_cli_runs_on_cpu(capsys):
         assert float(ln.split("(")[-1].split()[0]) < 1e-4
 
 
-def test_host_postprocess_path_raises():
+def test_host_postprocess_path_matches_fused_frames(chunked_vs_frames):
+    """``TEST_FUSED_POSTPROCESS=False`` (every frame alone, the host
+    post-processing path) gives the fused frame-by-frame run's masks
+    exactly: one frame at a time, both are the same step."""
+    out, _ = chunked_vs_frames
     cfg = tiny_test(TEST_FUSED_POSTPROCESS=False, **_KW)
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        Evaluator(cfg, AOCNet(cfg), device="cpu")
+    ev = Evaluator(cfg, init_random_(AOCNet(cfg),
+                                     torch.Generator().manual_seed(1)),
+                   device="cpu")
+    got = ev.evaluate_sequence(_Changing())["results"]
+    assert ev.chunk_n == 1
+    for k, m in out[1]["results"].items():
+        np.testing.assert_array_equal(got[k], m)
