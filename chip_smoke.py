@@ -67,6 +67,43 @@ Phases, one line each (a failing phase raises and exits non-zero):
    reads a refreshed bank); then the ensemble's chunks the same way, and
    its graph replays against eager runs on the card, which must be equal.
 
+5. training (the port's own training route, which no kernel is on):
+   5a. ``Trainer.fit`` at full ``resnet101_aocnet`` width on
+   ``SyntheticTrain`` 465×465 clips with five objects (O = 6) through
+   ``TrainBatcher`` (two loader threads), T = 5, batch 2, remat, float32
+   (TF32 for convolutions only), burn-in from step 3, hard mining over 4
+   steps, 5 steps: per step the loss, IoU, grad norm and learning rate,
+   then the steady ms/step (median of steps 2–5, CUDA events), clips/s,
+   the peak memory, and from ``torch.profiler`` over one more step the
+   device busy ms, idle share and kernels per step; every loss and norm
+   finite, the parameters moved, and the four kernels' launch counters
+   (set to 0 before the run) still 0 after it;
+   5b. card against CPU at 65×65, T = 2, batch 1, float32 with TF32 off
+   (and as it was again afterwards), dropout 0, the same weights and
+   draws, the burn-in off: one ``loss_fn`` with its gradients (per-frame
+   losses within 1e-4 relative; each parameter tensor's gradient within
+   1e-3 of its largest |g| or three times the CPU's own floor,
+   ``engine.grad_check``, and all of them within 2e-2 relative L2; the
+   decoder's top-β masks shared, each parted entry a near tie), then
+   three optimizer steps from the same state (every parameter tensor
+   within 1e-4 of its largest |p|, or three times the CPU's spread over
+   four runs from weights ten ulps apart, own masks; the three updates
+   themselves part by about half their size between those CPU runs, so
+   this check has little power and the update's relative L2 is printed
+   beside the CPU's), then the optimizer without that chaos: one more
+   update on both sides from the CPU's state and the same gradients,
+   every parameter tensor within 1e-6 of its largest |p|, and the same
+   bar must catch the card applying no update and applying it at 1.01
+   times the learning rate (``engine.grad_check.update_check``);
+   5c. ``GlobalMatchingMin`` at M = R = 13,689, O = 6, C = 100 and
+   ``LocalMatchingMin`` on the 59×59 grid with S = 2: card against CPU,
+   forward within 1e-4 of max(|d|, 1), argmins equal wherever the two
+   winners' float64 distances differ by more than 1e-4 relative, the
+   backward from the card's argmins within 1e-4 of each gradient's
+   largest magnitude; forward and backward ms.
+
+``python3 chip_smoke.py --only 5`` runs phase 5 alone.
+
 Every lock-step comparison with the CPU passes the gate of
 ``engine.lockstep.gate_failures``: masks agree on ≥ 99.9 % of every
 frame, max |Δlogit| < 1e-2, and every pixel where they part is a near
@@ -431,7 +468,278 @@ def _own_masks(lock, gate_failures) -> dict:
                 gate_failures=gate_failures(lock))
 
 
-def main() -> int:
+def _kernel_counters(ops):
+    return {name: getattr(ops, name) for name in
+            ("global_seg_map", "global_seg", "global_flat_min", "local_match")}
+
+
+def train_full_width(torch, ops, card) -> dict:
+    """Phase 5a: ``Trainer.fit`` at full width, counters from 0."""
+    import tempfile
+
+    from rvos_tpu_torch.cli.profile_train import profile_training, train_config
+    counters = _kernel_counters(ops)
+    with tempfile.TemporaryDirectory() as root:
+        cfg = train_config(2, 5, root, DATA_MAX_OBJ_NUM=5)
+        for fn in counters.values():
+            fn.launches = 0
+        r = profile_training(torch, cfg, 5)
+        launches = {n: fn.launches for n, fn in counters.items()}
+    for row in r["rows"]:
+        print(f"phase 5a step {row['step']}: loss {row['loss']:.5f} IoU "
+              f"{row['iou']:.4f} grad_norm {row['grad_norm']:.4f} lr "
+              f"{row['lr']:.7f} applied {row['applied']} [{card}]",
+              flush=True)
+    bad = [row for row in r["rows"]
+           if not all(map(lambda v: v == v and abs(v) != float("inf"),
+                          (row["loss"], row["grad_norm"])))]
+    if bad or r["moved"] == 0.0 or any(launches.values()):
+        raise AssertionError(f"training: non-finite steps {bad}, parameters "
+                             f"moved {r['moved']}, kernel launches "
+                             f"{launches}")
+    r["launches"] = launches
+    return r
+
+
+def train_card_vs_cpu(torch) -> dict:
+    """Phase 5b: one loss_fn with gradients, then three steps, then one
+    update from given gradients, card against CPU from the same weights,
+    batch and draws, with TF32 off (as it was again afterwards)."""
+    from rvos_tpu_torch.device import tf32_off
+
+    with tf32_off():
+        return _train_card_vs_cpu(torch)
+
+
+def _train_card_vs_cpu(torch) -> dict:
+    from rvos_tpu_torch.cli.train import train_transform
+    from rvos_tpu_torch.configs import tiny_test
+    from rvos_tpu_torch.data import SyntheticTrain, TrainBatcher
+    from rvos_tpu_torch.engine.grad_check import (floors, gradient_failures,
+                                                  perturbed_state,
+                                                  update_check)
+    from rvos_tpu_torch.engine.lockstep import _MaskWatch
+    from rvos_tpu_torch.engine.train import Trainer, batch_to_device
+    from rvos_tpu_torch.ops import prng
+
+    cfg = tiny_test(DATA_RANDOMCROP=(65, 65), DATA_CURR_SEQ_LEN=2,
+                    TRAIN_BATCH_SIZE=1, MODEL_ASPP_DROPOUT=0.0,
+                    TRAIN_REMAT=False, TRAIN_START_SEQ_TRAINING_STEPS=10 ** 6,
+                    TRAIN_HARD_MINING_STEP=4, TRAIN_TOTAL_STEPS=8,
+                    MATCHING_DTYPE="float32", EVAL_COMPUTE_DTYPE="float32",
+                    TRAIN_AUTO_RESUME=False)
+    cpu = Trainer(cfg, device="cpu", seed=0)
+    gpu = Trainer(cfg, device="cuda", init_state=cpu.model.state_dict())
+    watch = _MaskWatch(gpu.model, cpu.model, True)
+    data = SyntheticTrain(size=(65, 65), curr_len=2, obj_num=3, length=4)
+    batches = list(TrainBatcher(data, 1, train_transform(cfg, True),
+                                num_workers=1).epoch(0))
+    run_key = prng.prng_key(prng.TRAIN_SEED)
+    keys = []
+    for _ in batches:
+        run_key, k = prng.next_step_key(run_key)
+        keys.append(k)
+
+    def grads(tr, batch, key):
+        tr.optimizer.zero_grad()
+        loss, (losses, _, _) = tr._step_fn.loss_fn(
+            batch_to_device(batch, tr.device), 3, key.to(tr.device))
+        loss.backward()
+        return (losses.detach().cpu(),
+                {n: p.grad.detach().cpu() for n, p in
+                 tr.model.named_parameters() if p.grad is not None})
+
+    watch.begin(10 ** 9)
+    g_losses, g_grads = grads(gpu, batches[0], keys[0])
+    c_losses, c_grads = grads(cpu, batches[0], keys[0])
+    names = [n for n, _ in cpu.model.named_parameters()]
+    state = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    runs = []
+    for seed in range(3):
+        cpu.model.load_state_dict(perturbed_state(state, names, seed))
+        watch.begin(10 ** 9)
+        runs.append(grads(cpu, batches[0], keys[0])[1])
+    cpu.model.load_state_dict(state)
+    rel = ((g_losses - c_losses).abs() / c_losses.abs()).max().item()
+    bad, summary = gradient_failures(g_grads, c_grads,
+                                     floors(c_grads, runs), 1e-3)
+    out = {"loss_rel": rel, "losses": c_losses.tolist(), **summary,
+           "masks_parted": watch.parted, "unexplained": watch.unexplained}
+    if (rel > 1e-4 or bad or summary["all_l2_rel"] > 2e-2
+            or watch.unexplained or set(g_grads) != set(c_grads)):
+        raise AssertionError(f"training card vs CPU: {out} {bad[:10]}")
+
+    def params(tr):
+        return {n: p.detach().cpu().clone()
+                for n, p in tr.model.named_parameters()}
+
+    for batch, key in zip(batches[:3], keys[:3]):
+        watch.begin(10 ** 9)
+        gpu.train_step(batch, key)
+        cpu.train_step(batch, key)
+    runs = []
+    for seed in range(4):
+        tr = Trainer(cfg, device="cpu",
+                     init_state=perturbed_state(state, names, 10 + seed))
+        for batch, key in zip(batches[:3], keys[:3]):
+            tr.train_step(batch, key)
+        runs.append(params(tr))
+    want, got = params(cpu), params(gpu)
+    bad, summary = gradient_failures(got, want, floors(want, runs), 1e-4)
+    moved = sum(float((want[n] - state[n]).square().sum()) for n in want)
+    apart = sum(float((got[n] - want[n]).square().sum()) for n in want)
+    spread = max(sum(float((r[n] - want[n]).square().sum()) for n in want)
+                 for r in runs)
+    out.update(steps={k: summary[k] for k in ("worst_rel", "held_by_floor")},
+               update_l2_rel=(apart / moved) ** 0.5,
+               floor_update_l2_rel=(spread / moved) ** 0.5,
+               count=[gpu.optimizer.count, cpu.optimizer.count])
+    if bad or gpu.optimizer.count != cpu.optimizer.count:
+        raise AssertionError(f"training card vs CPU after 3 steps: {out} "
+                             f"{bad[:10]}")
+    # the optimizer alone, without the chaos: one more update from the
+    # CPU's state and the first step's CPU gradients on both sides
+    upd = update_check(gpu, cpu, c_grads)
+    out["update"] = {k: upd[k] for k in ("worst_rel", "tensors",
+                                         "no_update", "lr_1.01")}
+    if upd["failures"] or not upd["no_update"] or not upd["lr_1.01"]:
+        raise AssertionError(f"training card vs CPU, one update from the "
+                             f"same gradients: {out} {upd['failures'][:10]}")
+    return out
+
+
+def train_functions(torch, card) -> dict:
+    """Phase 5c: the training route's matching Functions at the full-width
+    step's shapes, card against CPU."""
+    import numpy as np
+
+    from rvos_tpu_torch.ops import train_matching as tm
+
+    rng = np.random.default_rng(5)
+    out = {}
+
+    def labels(shape, o):
+        lab = rng.integers(0, o, (shape[0] // 8 + 1, shape[1] // 8 + 1))
+        lab = np.kron(lab, np.ones((8, 8), np.int64))[:shape[0], :shape[1]]
+        return torch.from_numpy((lab[..., None] == np.arange(o))
+                                .astype(np.float32))
+
+    # global: a 117x117 query grid against the 117x117 reference frame
+    m = r = 117 * 117
+    c, o = 100, 6
+    q = torch.from_numpy(rng.standard_normal((m, c)).astype(np.float32))
+    bank = torch.from_numpy(rng.standard_normal((r, c)).astype(np.float32))
+    lab = labels((117, 117), o).reshape(r, o)
+    g = torch.from_numpy(rng.standard_normal((m, o)).astype(np.float32))
+    qd, bd, ld, gd = (t.cuda() for t in (q, bank, lab, g))
+    d_card, a_card = tm.global_min_argmin(qd, bd, ld)
+    dq, dr = tm.global_min_backward(qd, bd, a_card, gd)
+    d_cpu, a_cpu = tm.global_min_argmin(q, bank, lab)
+    dq_cpu, dr_cpu = tm.global_min_backward(q, bank, a_card.cpu(), g)
+    fwd_ms = _time_ms(lambda: tm.global_min_argmin(qd, bd, ld), 5)
+    bwd_ms = _time_ms(lambda: tm.global_min_backward(qd, bd, a_card, gd), 5)
+
+    def d64(idx):
+        rr = bank.double()[idx.reshape(-1)].reshape(m, o, c)
+        pen = (1.0 - lab.double()[idx.reshape(-1), torch.arange(o).repeat(m)]
+               ).reshape(m, o) * 5e4
+        return (q.double()[:, None] - rr).square().sum(-1) + pen
+
+    out["global"] = _function_check(torch, d_card, d_cpu, a_card.cpu(), a_cpu,
+                                    d64, (dq, dr), (dq_cpu, dr_cpu), fwd_ms,
+                                    bwd_ms)
+
+    # local: the 117x117 grid downsampled to 59x59, both previous frames
+    h = w = 59
+    radii = (2, 4, 6, 8, 10, 12)
+    x = torch.from_numpy(rng.standard_normal((h, w, c)).astype(np.float32))
+    ys = torch.from_numpy(rng.standard_normal((2, h, w, c)).astype(np.float32))
+    labl = labels((h, w), o)
+    gl = torch.from_numpy(rng.standard_normal((2, h, w, o, len(radii)))
+                          .astype(np.float32))
+    xd, ysd, lbd, gld = (t.cuda() for t in (x, ys, labl, gl))
+    l_card, i_card = tm.local_min_argmin(xd, ysd, lbd, radii)
+    dx, dys = tm.local_min_backward(xd, ysd, lbd, i_card, gld, radii)
+    l_cpu, i_cpu = tm.local_min_argmin(x, ys, labl, radii)
+    dx_cpu, dys_cpu = tm.local_min_backward(x, ys, labl, i_card.cpu(), gl,
+                                            radii)
+    lfwd = _time_ms(lambda: tm.local_min_argmin(xd, ysd, lbd, radii), 5)
+    lbwd = _time_ms(lambda: tm.local_min_backward(xd, ysd, lbd, i_card, gld,
+                                                  radii), 5)
+    pad, k = 12, 25
+    yp = torch.nn.functional.pad(ys.double(), (0, 0, pad, pad, pad, pad))
+    lp = torch.nn.functional.pad(labl.double(), (0, 0, pad, pad, pad, pad))
+
+    def l64(idx):
+        py = torch.arange(h)[None, :, None, None, None] + idx // k
+        px = torch.arange(w)[None, None, :, None, None] + idx % k
+        si = torch.arange(2)[:, None, None, None, None].expand_as(py)
+        oi = torch.arange(o)[None, None, None, :, None].expand_as(py)
+        dd = (x.double()[None, :, :, None, None] - yp[si, py, px]
+              ).square().sum(-1)
+        return torch.where(lp[py, px, oi] > 0.9, dd,
+                           torch.full_like(dd, 5e4))
+
+    out["local"] = _function_check(torch, l_card, l_cpu, i_card.cpu(), i_cpu,
+                                   l64, (dx, dys), (dx_cpu, dys_cpu), lfwd,
+                                   lbwd)
+    return out
+
+
+def _function_check(torch, d_card, d_cpu, a_card, a_cpu, d64, grads_card,
+                    grads_cpu, fwd_ms, bwd_ms) -> dict:
+    """Forward within 1e-4 of max(|d|, 1); argmins equal except where the
+    two winners' float64 distances lie within 1e-4 relative; backward
+    from the card's argmins within 1e-4 of each gradient's scale."""
+    fwd = (d_card.cpu() - d_cpu).abs().div(d_cpu.abs().clamp(min=1.0)).max()
+    parted = a_card != a_cpu
+    far = 0
+    if parted.any():
+        da, db = d64(a_card), d64(a_cpu)
+        far = int((parted & ((da - db).abs() > 1e-4 * db.abs().clamp(min=1.0))
+                   ).sum())
+    bwd = max(((gc.cpu() - gr).abs().max() / gr.abs().max()).item()
+              for gc, gr in zip(grads_card, grads_cpu))
+    out = {"fwd_rel": fwd.item(), "argmins_parted": int(parted.sum()),
+           "parted_not_near_tie": far, "bwd_rel": bwd, "fwd_ms": fwd_ms,
+           "bwd_ms": bwd_ms}
+    if out["fwd_rel"] > 1e-4 or far or bwd > 1e-4:
+        raise AssertionError(f"training Function card vs CPU: {out}")
+    return out
+
+
+def phase5(torch, ops, card):
+    """Phase 5: training, at full width (5a), card against CPU (5b), the
+    matching Functions at the step's shapes (5c)."""
+    t0 = time.time()
+    a = train_full_width(torch, ops, card)
+    print(f"phase 5a training resnet101_aocnet 465x465 T=5 batch 2 O=6 remat "
+          f"float32: steady {a['steady_ms']:.1f} ms/step (median of steps "
+          f"2-5; steps {[round(t, 1) for t in a['step_ms']]}), "
+          f"{a['clips_s']:.3f} clips/s, peak {a['peak_gb']:.3f} GB above "
+          f"the {a['held_gb']:.3f} GB held before it, profiled "
+          f"step: wall {a['profiled_wall_ms']:.1f} ms, device busy "
+          f"{a['busy_ms']:.1f} ms, idle share {a['idle_share']:.3f}, "
+          f"{a['kernels']} kernels; kernel launches while training "
+          f"{a['launches']}; top kernels {a['top'][:8]}; took "
+          f"{time.time() - t0:.1f} s [{card}]", flush=True)
+    t0 = time.time()
+    b = train_card_vs_cpu(torch)
+    print(f"phase 5b training card vs cpu 65x65 T=2 batch 1 float32: {b}, "
+          f"took {time.time() - t0:.1f} s [{card}]", flush=True)
+    t0 = time.time()
+    c = train_functions(torch, card)
+    print(f"phase 5c GlobalMatchingMin M=R=13689 O=6 C=100, LocalMatchingMin "
+          f"59x59 S=2 card vs cpu: {c}, took {time.time() - t0:.1f} s "
+          f"[{card}]", flush=True)
+
+
+def main(argv=None) -> int:
+    import argparse
+    p = argparse.ArgumentParser(description="smoke run of the port on a GPU")
+    p.add_argument("--only", choices=["5"], default=None,
+                   help="run phase 5 (training) alone")
+    args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -454,6 +762,11 @@ def main() -> int:
 
     # ---- phase 1: the card and the build
     card = _card()
+    if args.only == "5":
+        phase5(torch, ops, card)
+        print(card)
+        print(json.dumps({"phase5_only": True}))
+        return 0
     t0 = time.time()
     paths = _cuda.build(["global_seg_map", "local_match", "global_flat_match"])
     built_s = time.time() - t0
@@ -687,6 +1000,8 @@ def main() -> int:
           f"runs only), steps, replays; '/own_masks' as in phase 4, not "
           f"gated): "
           f"{chunked}, took {time.time() - t0:.1f} s", flush=True)
+
+    phase5(torch, ops, card)
 
     kernels = []
     for key, name, src, rep, n in (

@@ -1,5 +1,18 @@
-"""Eval datasets (the port's own copy of the eval side of
-``rvos_tpu/data/datasets.py``).
+"""Datasets (the port's own copy of ``rvos_tpu/data/datasets.py``).
+
+Training: ``VOSTrain`` samples a reference frame (up to five tries for
+one with more than 200 foreground pixels), a previous frame and
+``curr_len`` frames at random gaps (indices reflect-padded at the ends),
+optionally reversed, with up to five retries for a reference frame that
+holds every object of the others; ``DAVISTrain`` (``ImageSets/2017``
+splits, repeated ``repeat_time`` times) and ``YTBVOSTrain``
+(``meta.json``, objects seen on fewer than two frames skipped) read the
+trees; ``SyntheticTrain`` makes fake clips from a seed.  Each item draws
+from a generator seeded by (seed, epoch, index) when a seed is given,
+so it does not depend on which loader thread reads it, and equals the
+JAX package's item.
+
+Evaluation:
 
 * ``VOSTestSeq``: one video streamed frame by frame, with the object
   count and list growing as objects are first annotated, non-contiguous
@@ -44,6 +57,207 @@ def _read_image(path: str, rgb: bool = True, dtype=np.float32) -> np.ndarray:
 def _read_label(path: str) -> np.ndarray:
     from PIL import Image
     return np.array(Image.open(path), dtype=np.uint8)
+
+
+class VOSTrain:
+    def __init__(self, image_root, label_root, imglistdic, transform=None,
+                 rgb=True, repeat_time=1, rand_gap=3, curr_len=3,
+                 rand_reverse=True, seed=None, image_dtype=np.float32):
+        self.image_root = image_root
+        self.label_root = label_root
+        self.imglistdic = imglistdic
+        self.transform = transform
+        self.rgb = rgb
+        self.image_dtype = image_dtype
+        self.repeat_time = repeat_time
+        self.rand_gap = rand_gap
+        self.curr_len = curr_len
+        self.rand_reverse = rand_reverse
+        self.seqs = list(imglistdic.keys())
+        self.seed = seed
+        self.epoch = 0          # folded into the per-item rng (set_epoch)
+
+    def set_epoch(self, epoch_idx: int):
+        self.epoch = int(epoch_idx)
+
+    def __len__(self):
+        return int(len(self.seqs) * self.repeat_time)
+
+    def _get_image_label(self, seqname, imagelist, lablist, index):
+        image = _read_image(os.path.join(self.image_root, seqname,
+                                         imagelist[index]), self.rgb,
+                            dtype=self.image_dtype)
+        label = _read_label(os.path.join(self.label_root, seqname,
+                                         lablist[index]))
+        return image, label
+
+    @staticmethod
+    def _check_index(total_len, index):
+        """Reflect an index past either end back into the sequence."""
+        if total_len <= 1:
+            return 0
+        while index < 0 or index >= total_len:
+            if index < 0:
+                index = -index
+            else:
+                index = 2 * (total_len - 1) - index
+        return index
+
+    def _ref_index(self, rng, seqname, lablist, min_fg_pixels=200,
+                   max_try=5):
+        ref_index = 0
+        for _ in range(max_try):
+            ref_index = int(rng.integers(len(lablist)))
+            lab = _read_label(os.path.join(self.label_root, seqname,
+                                           lablist[ref_index]))
+            if np.count_nonzero(lab) > min_fg_pixels:
+                break
+        return ref_index
+
+    def __getitem__(self, idx):
+        rng = (np.random.default_rng((self.seed, self.epoch, int(idx)))
+               if self.seed is not None else np.random.default_rng())
+        seqname = self.seqs[idx % len(self.seqs)]
+        imagelist, lablist = self.imglistdic[seqname]
+        frame_num = len(imagelist)
+        if self.rand_reverse and rng.integers(2) == 1:
+            imagelist, lablist = imagelist[::-1], lablist[::-1]
+
+        sample = None
+        for _ in range(5):
+            gaps = [int(rng.integers(self.rand_gap) + 1)
+                    for _ in range(self.curr_len)]
+            search = len(lablist) - sum(gaps)
+            prev_index = int(rng.integers(search)) if search > 1 else 0
+            prev_img, prev_lab = self._get_image_label(
+                seqname, imagelist, lablist, prev_index)
+
+            curr_imgs, curr_labs, objs = [], [], set(np.unique(prev_lab))
+            now = prev_index
+            for gap in gaps:
+                now += gap
+                ci = self._check_index(len(lablist), now)
+                im, la = self._get_image_label(seqname, imagelist, lablist, ci)
+                curr_imgs.append(im)
+                curr_labs.append(la)
+                objs |= set(np.unique(la))
+
+            ref_index = self._ref_index(rng, seqname, lablist)
+            ref_img, ref_lab = self._get_image_label(
+                seqname, imagelist, lablist, ref_index)
+            ref_objs = set(np.unique(ref_lab))
+            sample = (ref_img, ref_lab, prev_img, prev_lab, curr_imgs,
+                      curr_labs, ref_objs)
+            if all(o in ref_objs for o in objs if o != 0):
+                break
+
+        ref_img, ref_lab, prev_img, prev_lab, curr_imgs, curr_labs, \
+            ref_objs = sample
+        out = {
+            "ref_img": ref_img, "prev_img": prev_img, "curr_img": curr_imgs,
+            "ref_label": ref_lab, "prev_label": prev_lab,
+            "curr_label": curr_labs,
+            "meta": {"seq_name": seqname, "frame_num": frame_num,
+                     "obj_num": int(max(ref_objs))},
+        }
+        if self.transform is not None:
+            out = self.transform(out)
+        return out
+
+
+class DAVISTrain(VOSTrain):
+    def __init__(self, root, split=("train",), transform=None,
+                 full_resolution=False, repeat_time=30, rand_gap=3,
+                 curr_len=3, rand_reverse=True, rgb=True, seed=None,
+                 image_dtype=np.float32):
+        resolution = "480p"
+        if full_resolution:
+            resolution = "Full-Resolution"
+            if not os.path.exists(os.path.join(root, "JPEGImages",
+                                               resolution)):
+                print("No Full-Resolution, use 480p instead.")
+                resolution = "480p"
+        image_root = os.path.join(root, "JPEGImages", resolution)
+        label_root = os.path.join(root, "Annotations", resolution)
+        seq_names = []
+        for sp in split:
+            with open(os.path.join(root, "ImageSets", "2017",
+                                   sp + ".txt")) as f:
+                seq_names.extend(x.strip() for x in f if x.strip())
+        imglistdic = {}
+        for seq in seq_names:
+            images = sorted(os.listdir(os.path.join(image_root, seq)))
+            labels = sorted(os.listdir(os.path.join(label_root, seq)))
+            imglistdic[seq] = (images, labels)
+        super().__init__(image_root, label_root, imglistdic, transform, rgb,
+                         repeat_time, rand_gap, curr_len, rand_reverse, seed,
+                         image_dtype)
+
+
+class YTBVOSTrain(VOSTrain):
+    def __init__(self, root, transform=None, rand_gap=3, curr_len=3,
+                 rand_reverse=True, rgb=True, seed=None,
+                 image_dtype=np.float32):
+        image_root = os.path.join(root, "JPEGImages")
+        label_root = os.path.join(root, "Annotations")
+        with open(os.path.join(root, "meta.json")) as f:
+            meta = json.load(f)["videos"]
+        imglistdic = {}
+        for seq, info in meta.items():
+            frames = set()
+            for obj in info["objects"].values():
+                if len(obj["frames"]) >= 2:
+                    frames.update(obj["frames"])
+            frames = sorted(frames)
+            if len(frames) >= 2:
+                imglistdic[seq] = ([f + ".jpg" for f in frames],
+                                   [f + ".png" for f in frames])
+        super().__init__(image_root, label_root, imglistdic, transform, rgb,
+                         1, rand_gap, curr_len, rand_reverse, seed,
+                         image_dtype)
+
+
+class SyntheticTrain:
+    """Fake clips for a full training run with no dataset: random frames
+    from (seed, index), ``obj_num`` horizontal bands as objects."""
+
+    def __init__(self, size=(465, 465), curr_len=3, length=3000,
+                 transform=None, obj_num=2, seed=0):
+        self.size = size
+        self.curr_len = curr_len
+        self.length = length
+        self.transform = transform
+        self.obj_num = obj_num
+        self.seed = seed
+
+    def __len__(self):
+        return self.length
+
+    def _frame(self, rng):
+        h, w = self.size
+        img = rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
+        lab = np.zeros((h, w), np.uint8)
+        for o in range(1, self.obj_num + 1):
+            y = (h // (self.obj_num + 1)) * o
+            lab[y - h // 8: y + h // 8, w // 4: 3 * w // 4] = o
+        return img, lab
+
+    def __getitem__(self, idx):
+        rng = np.random.default_rng((self.seed, int(idx)))
+        ref_img, ref_lab = self._frame(rng)
+        prev_img, prev_lab = self._frame(rng)
+        currs = [self._frame(rng) for _ in range(self.curr_len)]
+        sample = {
+            "ref_img": ref_img, "prev_img": prev_img,
+            "curr_img": [c[0] for c in currs],
+            "ref_label": ref_lab, "prev_label": prev_lab,
+            "curr_label": [c[1] for c in currs],
+            "meta": {"seq_name": f"fake{idx}", "frame_num": 10,
+                     "obj_num": self.obj_num},
+        }
+        if self.transform is not None:
+            sample = self.transform(sample)
+        return sample
 
 
 class VOSTestSeq:

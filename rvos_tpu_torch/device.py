@@ -16,6 +16,7 @@ matmuls stay full float32 always.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -43,6 +44,21 @@ def configure_precision(cfg: Config) -> None:
     """Set both TF32 switches explicitly for ``cfg``'s precision mode."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = not is_parity(cfg)
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """Both TF32 switches off inside the block (a card-against-CPU
+    comparison), and as they were again after it."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def compute_dtype(cfg: Config, device: torch.device) -> torch.dtype:

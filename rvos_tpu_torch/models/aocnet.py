@@ -1,5 +1,6 @@
 """AOC-Net — adaptive object proxies + conditional mask calibration
-(PyTorch port of ``rvos_tpu/models/aocnet.py``, inference path).
+(PyTorch port of ``rvos_tpu/models/aocnet.py``): the inference path
+and, with ``segment_frame(..., train=True)``, the training route.
 
 Public methods keep the JAX package's layouts (``[h, w, C]`` embeddings,
 ``[..., O]`` one-hot labels); inside, the modules run NCHW with the
@@ -25,7 +26,8 @@ from ..ops.matching import (compact_reference_bank,
                             compact_reference_bank_occupancy,
                             compact_reference_bank_segmented, flat_bank,
                             global_matching_flat,
-                            global_matching_flat_segmented)
+                            global_matching_flat_segmented, squash_distance)
+from ..ops.train_matching import global_matching_min, local_matching_min
 from .decoder import CalibrationDecoding, DecoderMemory
 from .deeplab import DeepLab
 from .layers import GN, DynamicPreHead
@@ -54,7 +56,8 @@ class AOCNet(nn.Module):
         c = cfg
         self.cfg = cfg
         self.feature_extracter = DeepLab(c.MODEL_OUTPUT_STRIDE,
-                                         c.MODEL_BACKBONE)
+                                         c.MODEL_BACKBONE,
+                                         c.MODEL_ASPP_DROPOUT)
         self.semantic_embedding = SemanticEmbedding(
             c.MODEL_ASPP_OUTDIM, c.MODEL_SEMANTIC_EMBEDDING_DIM,
             c.MODEL_GN_GROUPS, c.MODEL_GN_EMB_GROUPS)
@@ -71,11 +74,14 @@ class AOCNet(nn.Module):
             beta_percentage=c.MODEL_BETA_PERCENTAGE)
 
     # ------------------------------------------------------------------
-    def extract_feature(self, imgs: torch.Tensor
+    def extract_feature(self, imgs: torch.Tensor,
+                        generator: Optional[torch.Generator] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[N, H, W, 3] → (embedding [N, h4, w4, emb], low-level
-        [N, h4, w4, 256])."""
-        feats, low = self.feature_extracter(imgs.permute(0, 3, 1, 2))
+        [N, h4, w4, 256]).  ``generator`` draws the ASPP dropout mask
+        (training); without one the dropout is the identity."""
+        feats, low = self.feature_extracter(imgs.permute(0, 3, 1, 2),
+                                            generator)
         emb = self.semantic_embedding(feats)
         return emb.permute(0, 2, 3, 1), low.permute(0, 2, 3, 1)
 
@@ -99,6 +105,7 @@ class AOCNet(nn.Module):
         flat_emb: Optional[torch.Tensor] = None,   # [P, C] precompacted bank
         flat_lab: Optional[torch.Tensor] = None,   # [P, O]
         flat_obj: Optional[torch.Tensor] = None,   # [n_tiles] tile→object
+        train: bool = False,
     ) -> Tuple[torch.Tensor, DecoderMemory]:
         """One frame's matching + calibration decode → logits [O, h, w].
 
@@ -124,8 +131,10 @@ class AOCNet(nn.Module):
         prev_onehot = prev_onehot * ov
 
         seg_bank = False
+        if train and flat_emb is not None:
+            raise ValueError("the training route flattens its own bank")
         if flat_emb is None:
-            g = c.TEST_GLOBAL_ATROUS_RATE
+            g = c.TRAIN_GLOBAL_ATROUS_RATE if train else c.TEST_GLOBAL_ATROUS_RATE
             flat_emb, flat_lab = flat_bank(ref_emb_bank[:, ::g, ::g],
                                            ref_onehot[:, ::g, ::g], slot_valid)
             if c.MATCHING_MAX_REF_PIXELS:
@@ -137,7 +146,12 @@ class AOCNet(nn.Module):
                         and bool(c.MATCHING_MAX_REF_PIXELS))
 
         # 1. global pixel matching
-        if seg_bank:
+        if train:
+            d_min = global_matching_min(current_emb.reshape(h * w, -1).float(),
+                                        flat_emb.float(), flat_lab.float())
+            global_fg = squash_distance(d_min.reshape(h, w, o)[..., None],
+                                        bias)
+        elif seg_bank:
             global_fg = global_matching_flat_segmented(
                 current_emb, flat_emb.to(dtype), flat_lab.to(dtype), bias,
                 flat_obj, dtype=dtype, mixed=mixed)
@@ -146,10 +160,12 @@ class AOCNet(nn.Module):
                 current_emb, flat_emb.to(dtype), flat_lab.to(dtype), bias,
                 dtype=dtype, mixed=mixed)
 
-        # 2. AOP cluster matching
-        banks = cluster_objects(flat_emb, flat_lab, kmeans_scores,
-                                k=c.MODEL_CLUSTER_NUM,
-                                iters=c.MODEL_KMEANS_ITERS, mixed=mixed)
+        # 2. AOP cluster matching, on detached inputs (no gradient
+        # reaches the bank through 20 Lloyd iterations)
+        with torch.no_grad():
+            banks = cluster_objects(flat_emb.detach(), flat_lab.detach(),
+                                    kmeans_scores, k=c.MODEL_CLUSTER_NUM,
+                                    iters=c.MODEL_KMEANS_ITERS, mixed=mixed)
         global_cluster = cluster_matching(current_emb, banks, bias,
                                           dtype=dtype)
 
@@ -162,8 +178,10 @@ class AOCNet(nn.Module):
         local_pair = local_matching_bank_stacked(
             current_emb, torch.stack([prev_emb, prev_inst.to(prev_emb.dtype)]),
             prev_onehot, bias, c.MODEL_MULTI_LOCAL_DISTANCE,
-            atrous_rate=c.TEST_LOCAL_ATROUS_RATE,
-            allow_downsample=c.MODEL_LOCAL_DOWNSAMPLE, dtype=op_dtype)
+            atrous_rate=(c.TRAIN_LOCAL_ATROUS_RATE if train
+                         else c.TEST_LOCAL_ATROUS_RATE),
+            allow_downsample=c.MODEL_LOCAL_DOWNSAMPLE, dtype=op_dtype,
+            match=local_matching_min if train else None)
         local_fg, local_proxy = local_pair[0], local_pair[1]
 
         # 5. concat in reference channel order

@@ -13,7 +13,9 @@ fixed shape with a validity flag each (``DecoderMemory.empty``).  Slot 0
 is refreshed every frame; slot 1 is sticky from its first assignment.
 An invalid slot (the first decoded frame) reads the current features,
 selected on the flags on the device, so a frame with memory and one
-without run the same operations (one CUDA graph serves both).
+without run the same operations (one CUDA graph serves both).  Slots
+are detached copies: in training no gradient flows through the memory,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -103,10 +105,11 @@ class CalibrationDecoding(nn.Module):
                                   dim=1))
         x = self.ASPP(x)
 
-        x_cur_1 = x
+        # the memory carries no gradient: a slot is a detached copy
+        x_cur_1 = x.detach()
         mem0 = torch.where(memory.valid[0], memory.slots[0], x_cur_1)
         x = self._modulator(x, mem0, head, "M1")
-        mem1 = torch.where(memory.valid[1], memory.slots[1], x)
+        mem1 = torch.where(memory.valid[1], memory.slots[1], x.detach())
         x = self._modulator(x, mem1, head, "M2")
         new_memory = DecoderMemory(torch.stack([x_cur_1, mem1]),
                                    torch.ones_like(memory.valid))

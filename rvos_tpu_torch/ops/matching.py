@@ -245,12 +245,15 @@ def local_matching_bank_stacked(
     atrous_rate: int = 1,
     allow_downsample: bool = True,
     dtype=torch.float32,
+    match=None,
 ) -> torch.Tensor:
     """Local matching of one query against S previous-frame embeddings
     sharing one label map → [S, H, W, O, n] squashed, channel order
     [full radius, radii[:-1]].  2× bilinear downsample to
     ``(H//2+1, W//2+1)`` with nearest-resized labels, kernel 2 on the
-    small grid, squash, then bilinear upsample back."""
+    small grid (or ``match``, a function of ``local_match``'s signature:
+    the training route's ``train_matching.local_matching_min``), squash,
+    then bilinear upsample back."""
     ori_h, ori_w, _ = query_emb.shape
     x = query_emb.to(dtype)
     ys = prev_embs.to(dtype)
@@ -263,8 +266,8 @@ def local_matching_bank_stacked(
     if (h, w) != (ori_h, ori_w):
         labels = resize_nchw(prev_onehot.permute(2, 0, 1), (h, w),
                              "nearest").permute(1, 2, 0)
-    multi = local_match(x, ys, labels, tuple(multi_local_distance),
-                        atrous_rate)                         # [S,h,w,O,n]
+    multi = (match or local_match)(x, ys, labels, tuple(multi_local_distance),
+                                   atrous_rate)              # [S,h,w,O,n]
     multi = squash_distance(multi.float(), dis_bias)
     if (h, w) != (ori_h, ori_w):
         multi = resize_nchw(multi.permute(0, 3, 4, 1, 2),

@@ -13,6 +13,12 @@ a float32 mantissa in [1, 2), subtracts 1, scales and shifts.  So the
 draw of row i does not depend on R: a smaller bank's draws are a prefix
 of a larger one's.
 
+The trainer draws from the run key ``PRNGKey(1234)``, split once per
+step into the next run key and the step's key; frame ``t`` of the
+rollout, item ``b``, object ``o`` seeds k-means with
+``uniform(split(split(split(fold_in(step_key, 1), T)[t], B)[b], O)[o],
+(R,), 0.5, 1.0)`` (``rvos_tpu/engine/train.py``), ``train_kmeans_scores``.
+
 Here the words are ``int64`` tensors holding uint32 values, so the hash
 runs on any device with exact integer arithmetic and the float steps
 are exact too: the CPU and the card draw the same bits.
@@ -28,6 +34,7 @@ _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 KMEANS_SEED = 42
+TRAIN_SEED = 1234
 
 
 def threefry2x32(k0, k1, x0: int, x1: torch.Tensor
@@ -105,4 +112,21 @@ def kmeans_init_scores(frames: Sequence[int], n_obj: int, n_rows: int,
     keys = kmeans_keys(frames, n_obj)
     if device is not None and torch.device(device).type == "cuda":
         keys = keys.pin_memory().to(device, non_blocking=True)
+    return uniform(keys, n_rows, 0.5, 1.0)
+
+
+def next_step_key(run_key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The trainer's ``rng, sub = split(rng)``: (next run key, this
+    step's key)."""
+    keys = split(run_key, 2)
+    return keys[0], keys[1]
+
+
+def train_kmeans_scores(step_key: torch.Tensor, t_len: int, batch: int,
+                        n_obj: int, n_rows: int, device=None) -> torch.Tensor:
+    """The JAX trainer's k-means init scores of one step → float32
+    [T, B, O, R] in [0.5, 1.0), drawn on ``device``."""
+    keys = split(split(split(fold_in(step_key, 1), t_len), batch), n_obj)
+    if device is not None:
+        keys = keys.to(device)
     return uniform(keys, n_rows, 0.5, 1.0)

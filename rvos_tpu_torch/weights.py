@@ -56,12 +56,11 @@ def from_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def load_reference_checkpoint(path: str, model: nn.Module) -> nn.Module:
-    """Load a reference ``.pth``/``.pth.tar`` into ``model`` strictly: a
-    raw state dict or the ``{"state_dict": ...}`` wrapper, with the DDP
+def read_reference_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference ``.pth``/``.pth.tar`` as a clean state dict: a raw
+    state dict or the ``{"state_dict": ...}`` wrapper, with the DDP
     ``module.`` prefix stripped and ``num_batches_tracked`` dropped.
-    Raises when the file is missing, is not a plain-tensor checkpoint,
-    or its keys or shapes do not fit the model."""
+    Raises when the file is missing or is not a plain-tensor checkpoint."""
     if os.path.isdir(path):
         raise ValueError(f"{path} is a directory: orbax checkpoints of the "
                          "JAX package are not read by the port; give a .pth")
@@ -70,9 +69,15 @@ def load_reference_checkpoint(path: str, model: nn.Module) -> nn.Module:
         obj = obj["state_dict"]
     if not isinstance(obj, dict):
         raise ValueError(f"{path}: no state dict in the checkpoint")
-    sd = {k.removeprefix("module."): v for k, v in obj.items()
-          if k.rsplit(".", 1)[-1] != "num_batches_tracked"}
-    model.load_state_dict(sd, strict=True)
+    return {k.removeprefix("module."): v for k, v in obj.items()
+            if k.rsplit(".", 1)[-1] != "num_batches_tracked"}
+
+
+def load_reference_checkpoint(path: str, model: nn.Module) -> nn.Module:
+    """Load a reference ``.pth``/``.pth.tar`` into ``model`` strictly
+    (``read_reference_checkpoint``); raises when its keys or shapes do
+    not fit the model."""
+    model.load_state_dict(read_reference_checkpoint(path), strict=True)
     return model
 
 

@@ -117,3 +117,55 @@ def test_cli_runs_the_ensemble(tmp_path, capsys):
     for f, mask in mf["test2"].items():
         assert mask.shape == (129, 129)
     assert any((single["test2"][f] != m).any() for f, m in mf["test2"].items())
+
+
+def test_train_cli_runs_on_the_cpu(tmp_path):
+    """``python -m rvos_tpu_torch.cli.train --config tiny_test --synthetic
+    --total_step 2 --device cpu``: an ``Itr:`` line with a finite loss
+    for each step, two lines of the metrics log and the last step's
+    checkpoint, which a new run of the same command resumes from (and so
+    has nothing left to do)."""
+    import json
+    import re
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="2")
+    cmd = [sys.executable, "-m", "rvos_tpu_torch.cli.train", "--config",
+           "tiny_test", "--synthetic", "--total_step", "2", "--device", "cpu"]
+    out = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    itr = re.findall(r"^Itr:(\d+), LR:([\d.]+), Time:[\d.]+, L:(\S+) "
+                     r"IoU:(\S+)$", out.stdout, re.M)
+    assert [int(i[0]) for i in itr] == [1, 2], out.stdout
+    assert all(np.isfinite(float(i[2])) for i in itr)
+    res = tmp_path / "workdir" / "result" / "tiny"
+    lines = (res / "log" / "metrics.jsonl").read_text().splitlines()
+    assert [json.loads(x)["step"] for x in lines] == [1, 2]
+    assert all(np.isfinite(json.loads(x)["grad_norm"]) for x in lines)
+    state = torch.load(res / "ckpt" / "save_step_2.pth", weights_only=True)
+    assert state["step"] == 2 and state["optimizer"]["count"] == 2
+    again = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True,
+                           text=True, timeout=600)
+    assert again.returncode == 0 and "Auto-resumed from step 2" in again.stdout
+    assert "Itr:" not in again.stdout
+
+
+@pytest.mark.parametrize("argv,error", [
+    (["--float16", "--device", "cpu"], NotImplementedError),
+    (["--gpu_num", "2", "--device", "cpu"], NotImplementedError),
+    ([], RuntimeError),
+])
+def test_train_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, argv,
+                                               error):
+    """bfloat16 training and several GPUs are not ported; without
+    ``--device cpu`` and without a card the CLI raises."""
+    from rvos_tpu_torch.cli import train as train_cli
+    if not argv and torch.cuda.is_available():
+        pytest.skip("a card is visible")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(error):
+        train_cli.main(["--config", "tiny_test", "--synthetic",
+                        "--total_step", "1", *argv])

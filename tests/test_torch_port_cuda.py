@@ -487,3 +487,141 @@ def test_default_draws_on_card_equal_cpu(dev):
         want = kmeans_init_scores(frames, cfg.MODEL_MAX_OBJ_NUM, 16384)
         assert got.is_cuda
         assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+# ---- training (phase 5 of chip_smoke.py at small shapes) ----------------
+
+def _train_config():
+    from rvos_tpu_torch.configs import tiny_test
+    return tiny_test(DATA_RANDOMCROP=(33, 33), DATA_CURR_SEQ_LEN=2,
+                     MODEL_MULTI_LOCAL_DISTANCE=(1, 2), MODEL_MAX_OBJ_NUM=3,
+                     MODEL_ASPP_DROPOUT=0.0, TRAIN_REMAT=False,
+                     TRAIN_START_SEQ_TRAINING_STEPS=10 ** 6,
+                     TRAIN_HARD_MINING_STEP=4, MATCHING_DTYPE="float32",
+                     EVAL_COMPUTE_DTYPE="float32", TRAIN_AUTO_RESUME=False)
+
+
+def _train_batch():
+    from rvos_tpu_torch.cli.train import train_transform
+    from rvos_tpu_torch.data import SyntheticTrain, TrainBatcher
+    data = SyntheticTrain(size=(33, 33), curr_len=2, obj_num=2, length=1)
+    return next(iter(TrainBatcher(data, 1, train_transform(_train_config(),
+                                                           True),
+                                  num_workers=1).epoch(0)))
+
+
+@pytest.mark.parametrize("which", ["global", "local"])
+def test_train_functions_on_card_match_cpu(dev, which):
+    """The training route's Functions on the card against the CPU:
+    forward within 1e-4 of max(|d|, 1), argmins equal but for float64
+    near ties, the backward from the card's argmins within 1e-4."""
+    from rvos_tpu_torch.ops import train_matching as tm
+    rng = np.random.default_rng(3)
+    o = 4
+    if which == "global":
+        q = torch.from_numpy(rng.standard_normal((900, 32)).astype(np.float32))
+        r = torch.from_numpy(rng.standard_normal((5000, 32)).astype(np.float32))
+        lab = torch.from_numpy(np.eye(o, dtype=np.float32)[
+            rng.integers(0, o, 5000)])
+        g = torch.from_numpy(rng.standard_normal((900, o)).astype(np.float32))
+        d, a = tm.global_min_argmin(q.to(dev), r.to(dev), lab.to(dev))
+        grads = tm.global_min_backward(q.to(dev), r.to(dev), a, g.to(dev))
+        dc, ac = tm.global_min_argmin(q, r, lab)
+        want = tm.global_min_backward(q, r, a.cpu(), g)
+    else:
+        radii = (2, 4, 6)
+        x = torch.from_numpy(rng.standard_normal((21, 19, 32)).astype(np.float32))
+        ys = torch.from_numpy(rng.standard_normal((2, 21, 19, 32))
+                              .astype(np.float32))
+        lab = torch.from_numpy(np.eye(o, dtype=np.float32)[
+            rng.integers(0, o, (21, 19))])
+        g = torch.from_numpy(rng.standard_normal((2, 21, 19, o, 3))
+                             .astype(np.float32))
+        d, a = tm.local_min_argmin(x.to(dev), ys.to(dev), lab.to(dev), radii)
+        grads = tm.local_min_backward(x.to(dev), ys.to(dev), lab.to(dev), a,
+                                      g.to(dev), radii)
+        dc, ac = tm.local_min_argmin(x, ys, lab, radii)
+        want = tm.local_min_backward(x, ys, lab, a.cpu(), g, radii)
+    assert ((d.cpu() - dc).abs() / dc.abs().clamp(min=1.0)).max() <= 1e-4
+    assert (a.cpu() != ac).float().mean() <= 1e-3
+    for got, w in zip(grads, want):
+        assert (got.cpu() - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+@pytest.fixture
+def no_tf32():
+    from rvos_tpu_torch.device import tf32_off
+    with tf32_off():
+        yield
+
+
+def test_train_loss_fn_on_card_matches_cpu(dev, no_tf32):
+    """One ``loss_fn`` with gradients on the card and on the CPU from the
+    same weights, batch and draws, the decoder masks shared: per-frame
+    losses within 1e-4, every gradient within 1e-3 of its tensor's
+    largest |g| or three times the CPU's ten-ulp floor, all gradients
+    together within 2e-2 relative L2; no kernel launched."""
+    from rvos_tpu_torch.engine.grad_check import (floors, gradient_failures,
+                                                  perturbed_state)
+    from rvos_tpu_torch.engine.lockstep import _MaskWatch
+    from rvos_tpu_torch.engine.train import Trainer, batch_to_device
+    from rvos_tpu_torch.ops import prng
+
+    cfg = _train_config()
+    cpu = Trainer(cfg, device="cpu", seed=0)
+    gpu = Trainer(cfg, device="cuda", init_state=cpu.model.state_dict())
+    watch = _MaskWatch(gpu.model, cpu.model, True)
+    batch = _train_batch()
+    key = prng.next_step_key(prng.prng_key(prng.TRAIN_SEED))[1]
+
+    def grads(tr):
+        tr.optimizer.zero_grad()
+        loss, (losses, _, _) = tr._step_fn.loss_fn(
+            batch_to_device(batch, tr.device), 3, key.to(tr.device))
+        loss.backward()
+        return losses.detach().cpu(), {
+            n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()
+            if p.grad is not None}
+
+    counters = [ops.global_seg_map, ops.global_seg, ops.global_flat_min,
+                ops.local_match]
+    for fn in counters:
+        fn.launches = 0
+    watch.begin(10 ** 9)
+    gl, gg = grads(gpu)
+    assert [fn.launches for fn in counters] == [0, 0, 0, 0]
+    cl, cg = grads(cpu)
+    names = [n for n, _ in cpu.model.named_parameters()]
+    state = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    runs = []
+    for seed in range(3):
+        cpu.model.load_state_dict(perturbed_state(state, names, seed))
+        watch.begin(10 ** 9)
+        runs.append(grads(cpu)[1])
+    assert ((gl - cl).abs() / cl.abs()).max() <= 1e-4, (gl, cl)
+    bad, summary = gradient_failures(gg, cg, floors(cg, runs), 1e-3)
+    assert not bad and not watch.unexplained, (bad[:10], summary)
+    assert summary["all_l2_rel"] <= 2e-2, summary
+
+
+def test_train_update_on_card_matches_cpu(dev, no_tf32):
+    """One optimizer update on the card and on the CPU from the same
+    state (momentum buffers, update count) and the same seeded
+    gradients: every parameter within 1e-6 of its scale, and the two
+    controls (no update, 1.01 times the learning rate) caught."""
+    from rvos_tpu_torch.engine.grad_check import update_check
+    from rvos_tpu_torch.engine.train import Trainer
+
+    cfg = _train_config()
+    cpu = Trainer(cfg, device="cpu", seed=0)
+    gpu = Trainer(cfg, device="cuda", seed=1)
+    gen = torch.Generator().manual_seed(4)
+    for _ in range(2):
+        for p in cpu.model.parameters():
+            p.grad = torch.randn(p.shape, generator=gen)
+        cpu.optimizer.step()
+    grads = {n: torch.randn(p.shape, generator=gen)
+             for n, p in cpu.model.named_parameters()}
+    r = update_check(gpu, cpu, grads)
+    assert not r["failures"], r
+    assert r["no_update"] and r["lr_1.01"], r

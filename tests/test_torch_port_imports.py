@@ -39,12 +39,19 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
-# modules whose JAX counterparts import jax, cv2 or PIL at the top (the
-# pipeline, loader, datasets, perturbations, metrics): the port keeps
-# its own copies, and the checks here must cover them
+# modules whose JAX counterparts import jax, optax, orbax, cv2 or PIL at
+# the top (the pipeline, loader, datasets, perturbations, metrics, the
+# training engine, its losses, optimizer, checkpoints, logging and CLI):
+# the port keeps its own copies, and the checks here must cover them
 _STANDALONE = ("data/datasets.py", "data/loader.py", "data/perturb.py",
-               "engine/eval.py", "engine/eval_pipeline.py", "ops/prng.py",
-               "utils/davis_metrics.py", "utils/eval_zip.py")
+               "data/transforms.py", "engine/eval.py",
+               "engine/eval_pipeline.py", "engine/loss.py",
+               "engine/learning.py", "engine/train.py",
+               "engine/checkpoint.py", "engine/grad_check.py", "ops/prng.py",
+               "ops/train_matching.py", "cli/train.py",
+               "cli/profile_train.py", "utils/davis_metrics.py",
+               "utils/eval_zip.py", "utils/meters.py", "utils/logging.py",
+               "utils/image.py")
 
 
 @pytest.mark.parametrize("rel", _STANDALONE)
