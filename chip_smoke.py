@@ -102,7 +102,34 @@ Phases, one line each (a failing phase raises and exits non-zero):
    backward from the card's argmins within 1e-4 of each gradient's
    largest magnitude; forward and backward ms.
 
-``python3 chip_smoke.py --only 5`` runs phase 5 alone.
+6. bfloat16 training and the MobileNetV2 backbone:
+   6a. phase 5a's run with ``TRAIN_COMPUTE_DTYPE="bfloat16"`` (the
+   forward on bf16 copies of the parameters), printed beside phase 5a's
+   float32 numbers (with ``--only 6`` that float32 run is made here
+   first): every extractor output bf16 (a forward hook), parameters,
+   gradients and momentum float32, counters 0;
+   6b. card against CPU: first each stage of the bf16 route alone
+   (``engine.stage_check``: a backbone block of each kind, the ASPPs,
+   the DeepLab decoder, the embedding, the pre-head, a gate, a decoder
+   bottleneck and the matching maps of ``segment_frame(train=True)``),
+   from the same bf16 inputs and output gradient, output, input and
+   parameter gradients within ``stage_check.CARD_BARS``, each bar below
+   the gap of the card's float32 run of the stage (power); then at
+   65×65 as 5b's first check, one ``loss_fn`` each of
+   ``TRAIN_COMPUTE_DTYPE="bfloat16"`` and of bfloat16 matching
+   (``--float16``), held to the CPU tests' whole-step bars
+   (``engine.grad_check.BF16_BARS``; those of bf16 compute only bound
+   the step's size), with the worst tensors;
+   6c. phase 3's main path with ``MODEL_BACKBONE="mobilenet"`` (the same
+   video, chunks of 5 as graph replays; B.1 and B.4 on every frame after
+   the first), its steady median and p90 ms/frame, peak and each
+   object's foreground share on the last frame; then card against CPU
+   at 65×65 in lock-step, float32 and mixed matching, through the gate;
+   6d. batch-2 float32 MobileNet steps at 465×465 (``fit`` of 5 steps,
+   the median of steps 2–5), ms/step and peak.
+
+``python3 chip_smoke.py --only 5`` (or ``--only 6``) runs that phase
+alone.
 
 Every lock-step comparison with the CPU passes the gate of
 ``engine.lockstep.gate_failures``: masks agree on ≥ 99.9 % of every
@@ -444,8 +471,10 @@ def run_video(torch, ops, ev, seq, global_kernel, window):
         got = profiled.get(k, [])
         if len(got) != len(seq) - 1 or min(got) < n_var:
             raise AssertionError(f"profiler: {k} per frame {got}")
+    ranked = sorted(per_frame)
     return dict(out=out, launches=launches, steady_ms=steady_ms,
-                median_ms=sorted(per_frame)[len(per_frame) // 2],
+                median_ms=ranked[len(ranked) // 2],
+                p90_ms=ranked[min(len(ranked) - 1, int(0.9 * len(ranked)))],
                 peak_gb=peak_gb, replays=replays, captures=captures,
                 per_frame=profiled)
 
@@ -473,20 +502,22 @@ def _kernel_counters(ops):
             ("global_seg_map", "global_seg", "global_flat_min", "local_match")}
 
 
-def train_full_width(torch, ops, card) -> dict:
-    """Phase 5a: ``Trainer.fit`` at full width, counters from 0."""
+def train_full_width(torch, ops, card, phase="5a", steps=5, inspect=None,
+                     **kw) -> dict:
+    """Phase 5a (and 6a, 6d with ``kw`` set): ``Trainer.fit`` at full
+    width, batch 2, counters from 0."""
     import tempfile
 
     from rvos_tpu_torch.cli.profile_train import profile_training, train_config
     counters = _kernel_counters(ops)
     with tempfile.TemporaryDirectory() as root:
-        cfg = train_config(2, 5, root, DATA_MAX_OBJ_NUM=5)
+        cfg = train_config(2, steps, root, DATA_MAX_OBJ_NUM=5, **kw)
         for fn in counters.values():
             fn.launches = 0
-        r = profile_training(torch, cfg, 5)
+        r = profile_training(torch, cfg, steps, inspect=inspect)
         launches = {n: fn.launches for n, fn in counters.items()}
     for row in r["rows"]:
-        print(f"phase 5a step {row['step']}: loss {row['loss']:.5f} IoU "
+        print(f"phase {phase} step {row['step']}: loss {row['loss']:.5f} IoU "
               f"{row['iou']:.4f} grad_norm {row['grad_norm']:.4f} lr "
               f"{row['lr']:.7f} applied {row['applied']} [{card}]",
               flush=True)
@@ -708,20 +739,25 @@ def _function_check(torch, d_card, d_cpu, a_card, a_cpu, d64, grads_card,
     return out
 
 
-def phase5(torch, ops, card):
+def _train_line(a) -> str:
+    return (f"steady {a['steady_ms']:.1f} ms/step (median of steps "
+            f"2-{len(a['step_ms'])}; steps "
+            f"{[round(t, 1) for t in a['step_ms']]}), {a['clips_s']:.3f} "
+            f"clips/s, peak {a['peak_gb']:.3f} GB above the "
+            f"{a['held_gb']:.3f} GB held before it, profiled step: wall "
+            f"{a['profiled_wall_ms']:.1f} ms, device busy "
+            f"{a['busy_ms']:.1f} ms, idle share {a['idle_share']:.3f}, "
+            f"{a['kernels']} kernels; kernel launches while training "
+            f"{a['launches']}")
+
+
+def phase5(torch, ops, card) -> dict:
     """Phase 5: training, at full width (5a), card against CPU (5b), the
-    matching Functions at the step's shapes (5c)."""
+    matching Functions at the step's shapes (5c).  Returns 5a's numbers."""
     t0 = time.time()
     a = train_full_width(torch, ops, card)
     print(f"phase 5a training resnet101_aocnet 465x465 T=5 batch 2 O=6 remat "
-          f"float32: steady {a['steady_ms']:.1f} ms/step (median of steps "
-          f"2-5; steps {[round(t, 1) for t in a['step_ms']]}), "
-          f"{a['clips_s']:.3f} clips/s, peak {a['peak_gb']:.3f} GB above "
-          f"the {a['held_gb']:.3f} GB held before it, profiled "
-          f"step: wall {a['profiled_wall_ms']:.1f} ms, device busy "
-          f"{a['busy_ms']:.1f} ms, idle share {a['idle_share']:.3f}, "
-          f"{a['kernels']} kernels; kernel launches while training "
-          f"{a['launches']}; top kernels {a['top'][:8]}; took "
+          f"float32: {_train_line(a)}; top kernels {a['top'][:8]}; took "
           f"{time.time() - t0:.1f} s [{card}]", flush=True)
     t0 = time.time()
     b = train_card_vs_cpu(torch)
@@ -732,13 +768,239 @@ def phase5(torch, ops, card):
     print(f"phase 5c GlobalMatchingMin M=R=13689 O=6 C=100, LocalMatchingMin "
           f"59x59 S=2 card vs cpu: {c}, took {time.time() - t0:.1f} s "
           f"[{card}]", flush=True)
+    return a
+
+
+def _bf16_probe(trainer):
+    """Phase 6a's watch on a trainer: the dtypes of every output of the
+    feature extractor, forward after forward."""
+    seen = set()
+    hook = trainer.model.feature_extracter.register_forward_hook(
+        lambda m, a, out: seen.update(t.dtype for t in out))
+    return trainer, seen, hook
+
+
+def train_bf16_full_width(torch, ops, card) -> dict:
+    """Phase 6a: the bf16 step at full width; parameters, gradients and
+    momentum float32, the extractor's outputs bf16, counters 0."""
+    r = train_full_width(torch, ops, card, "6a", inspect=_bf16_probe,
+                         TRAIN_COMPUTE_DTYPE="bfloat16")
+    trainer, seen, hook = r.pop("inspected")
+    hook.remove()
+    params = {p.dtype for p in trainer.model.parameters()}
+    grads = {p.grad.dtype for p in trainer.model.parameters()
+             if p.grad is not None}
+    moments = {s["momentum_buffer"].dtype for s in
+               trainer.optimizer.sgd.state_dict()["state"].values()}
+    r["dtypes"] = dict(extractor_out=sorted(map(str, seen)),
+                       params=sorted(map(str, params)),
+                       grads=sorted(map(str, grads)),
+                       momentum=sorted(map(str, moments)))
+    del trainer
+    f32 = {torch.float32}
+    if (seen != {torch.bfloat16} or params != f32 or grads != f32
+            or moments != f32):
+        raise AssertionError(f"bf16 training dtypes: {r['dtypes']}")
+    return r
+
+
+def _worst(got, want, n=4):
+    """The ``n`` tensors farthest from the reference, over its scale."""
+    rel = {k: float((got[k].float() - w.float()).abs().max()
+                    / w.float().abs().max().clamp(min=1e-30))
+           for k, w in want.items()}
+    return sorted(rel.items(), key=lambda kv: -kv[1])[:n]
+
+
+def train_bf16_card_vs_cpu(torch, name: str, kw: dict) -> dict:
+    """Phase 6b: one ``loss_fn`` with its gradients of a bf16 route, card
+    against CPU at 65×65 from the same weights, batch and draws (TF32
+    off, the decoder's top-β masks shared): losses, all gradients and
+    each tensor (against three times the CPU's floor) within the route's
+    bars (``engine.grad_check.BF16_BARS``, the CPU tests')."""
+    from rvos_tpu_torch.cli.train import train_transform
+    from rvos_tpu_torch.configs import tiny_test
+    from rvos_tpu_torch.data import SyntheticTrain, TrainBatcher
+    from rvos_tpu_torch.device import tf32_off
+    from rvos_tpu_torch.engine.grad_check import (BF16_BARS, floors,
+                                                  gradient_failures,
+                                                  perturbed_state)
+    from rvos_tpu_torch.engine.lockstep import _MaskWatch
+    from rvos_tpu_torch.engine.train import Trainer, batch_to_device
+    from rvos_tpu_torch.ops import prng
+
+    cfg = tiny_test(
+        DATA_RANDOMCROP=(65, 65), DATA_CURR_SEQ_LEN=2, TRAIN_BATCH_SIZE=1,
+        MODEL_ASPP_DROPOUT=0.0, TRAIN_REMAT=False,
+        TRAIN_START_SEQ_TRAINING_STEPS=10 ** 6, TRAIN_HARD_MINING_STEP=4,
+        TRAIN_AUTO_RESUME=False, MATCHING_DTYPE="mixed").replace(**kw)
+    cpu = Trainer(cfg, device="cpu", seed=0)
+    gpu = Trainer(cfg, device="cuda", init_state=cpu.model.state_dict())
+    watch = _MaskWatch(gpu.model, cpu.model, True)
+    data = SyntheticTrain(size=(65, 65), curr_len=2, obj_num=3, length=1)
+    batch = next(iter(TrainBatcher(data, 1, train_transform(cfg, True),
+                                   num_workers=1).epoch(0)))
+    key = prng.next_step_key(prng.prng_key(prng.TRAIN_SEED))[1]
+
+    def grads(tr):
+        tr.optimizer.zero_grad()
+        watch.begin(10 ** 9)
+        loss, (losses, _, _) = tr._step_fn.loss_fn(
+            batch_to_device(batch, tr.device), 3, key.to(tr.device))
+        loss.backward()
+        return (losses.detach().cpu(),
+                {n: p.grad.detach().cpu() for n, p in
+                 tr.model.named_parameters() if p.grad is not None})
+
+    with tf32_off():
+        g_losses, g_grads = grads(gpu)
+        c_losses, c_grads = grads(cpu)
+        names = [n for n, _ in cpu.model.named_parameters()]
+        state = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+        runs = []
+        for seed in range(3):
+            cpu.model.load_state_dict(perturbed_state(state, names, seed))
+            runs.append(grads(cpu)[1])
+    loss_bar, l2_bar, rel_tol = BF16_BARS[name]
+    rel = ((g_losses - c_losses).abs() / c_losses.abs()).max().item()
+    bad, summary = gradient_failures(g_grads, c_grads, floors(c_grads, runs),
+                                     rel_tol)
+    out = {"loss_rel": rel, "losses": c_losses.tolist(), **summary,
+           "worst": _worst(g_grads, c_grads), "masks_parted": watch.parted,
+           "unexplained": watch.unexplained,
+           "bars": {"loss": loss_bar, "all_l2": l2_bar}}
+    if (rel > loss_bar or bad or summary["all_l2_rel"] > l2_bar
+            or watch.unexplained or set(g_grads) != set(c_grads)):
+        raise AssertionError(f"bf16 training ({name}) card vs CPU: {out} "
+                             f"{bad[:10]}")
+    return out
+
+
+def bf16_stages_card_vs_cpu(torch) -> dict:
+    """Phase 6b's first check: every stage of the bf16 route alone, card
+    against CPU (``engine.stage_check.stage_gaps``, TF32 off)."""
+    from rvos_tpu_torch.configs import tiny_test
+    from rvos_tpu_torch.device import tf32_off
+    from rvos_tpu_torch.engine.stage_check import CARD_BARS, stage_gaps
+    from rvos_tpu_torch.engine.train import Trainer
+
+    cfg = tiny_test(MODEL_MULTI_LOCAL_DISTANCE=(1, 2), MODEL_MAX_OBJ_NUM=3,
+                    MATCHING_DTYPE="mixed", TRAIN_AUTO_RESUME=False)
+    cpu = Trainer(cfg, device="cpu", seed=0)
+    gpu = Trainer(cfg, device="cuda", init_state=cpu.model.state_dict())
+    with tf32_off():
+        r = stage_gaps(cpu.model, gpu.model)
+    if r["failures"]:
+        raise AssertionError(f"bf16 stages card vs CPU past "
+                             f"{ {k: CARD_BARS.get(k) for k in r['failures']} }"
+                             f": { {k: r['stages'][k] for k in r['failures']} }")
+    return r["stages"]
+
+
+def mobilenet_eval(torch, ops, card) -> dict:
+    """Phase 6c: the default pipeline with the MobileNetV2 backbone at
+    full width (``run_video``'s checks: B.1 and B.4 on every frame after
+    the first), then card against CPU at 65×65 in lock-step, float32 and
+    mixed matching, through the gate."""
+    from rvos_tpu_torch.cli.profile_eval import video_steps
+    from rvos_tpu_torch.configs import get_config
+    from rvos_tpu_torch.data import SyntheticEval
+    from rvos_tpu_torch.engine import Evaluator
+    from rvos_tpu_torch.engine.lockstep import (gate_failures, lockstep_masks,
+                                                parity_config, parity_scores)
+    from rvos_tpu_torch.models import AOCNet
+    from rvos_tpu_torch.weights import init_random_
+
+    cfg = get_config("resnet101_aocnet", MODEL_BACKBONE="mobilenet")
+    model = init_random_(AOCNet(cfg), torch.Generator().manual_seed(0))
+    seq = SyntheticEval(size=(481, 849), n_seqs=1, n_frames=22, obj_num=3)[0]
+    ev = Evaluator(cfg, model, device="cuda")
+    steps = [s for s in video_steps(ev, len(seq)) if len(s) == ev.chunk_n]
+    window = (steps[1][0], steps[-1][-1])
+    r = run_video(torch, ops, ev, seq, "global_seg_map", window)
+    if r["replays"] != len(steps) or r["captures"] != 1:
+        raise AssertionError(f"{r['replays']} replays and {r['captures']} "
+                             f"captures for {len(steps)} full chunks")
+    last = r["out"]["results"][max(r["out"]["results"])]
+    r["fg_share_last"] = {k: round(float((last == k).mean()), 4)
+                          for k in (1, 2, 3)}
+    r["window"] = window
+    del ev, model
+    lock = {}
+    for matching in ("float32", "mixed"):
+        small = parity_config("occupancy", matching).replace(
+            MODEL_BACKBONE="mobilenet")
+        res = lockstep_masks(
+            small,
+            lambda c=small: init_random_(AOCNet(c),
+                                         torch.Generator().manual_seed(0)),
+            SyntheticEval(size=(65, 65), n_seqs=1, n_frames=6)[0],
+            parity_scores)
+        lock[matching] = dict(lockstep=min(res.agree), dlogit=res.max_dlogit,
+                              demb=res.max_demb, unexplained=res.unexplained,
+                              masks_parted=res.masks_parted,
+                              banks=all(res.banks_equal))
+        failed = gate_failures(res)
+        if (failed or len(res.agree) != 5 or res.max_demb >= 1e-3
+                or not res.banks_equal or not all(res.banks_equal)):
+            raise AssertionError(f"mobilenet/{matching}: card vs CPU: "
+                                 f"{lock[matching]} {failed}")
+    r["lockstep"] = lock
+    return r
+
+
+def phase6(torch, ops, card, f32=None) -> dict:
+    """Phase 6: bf16 training at full width (6a, beside phase 5a's float32
+    step, run here when phase 5 was not), the bf16 routes card against
+    CPU (6b), MobileNet eval (6c) and MobileNet training (6d).  Returns
+    6c's numbers."""
+    t_all = time.time()
+    if f32 is None:
+        f32 = train_full_width(torch, ops, card)
+    t0 = time.time()
+    a = train_bf16_full_width(torch, ops, card)
+    print(f"phase 6a training resnet101_aocnet 465x465 T=5 batch 2 O=6 remat "
+          f"TRAIN_COMPUTE_DTYPE=bfloat16: {_train_line(a)}; dtypes "
+          f"{a['dtypes']}; top kernels {a['top'][:8]}; took "
+          f"{time.time() - t0:.1f} s | float32 (phase 5a): "
+          f"{_train_line(f32)} [{card}]", flush=True)
+    t0 = time.time()
+    stages = bf16_stages_card_vs_cpu(torch)
+    print("phase 6b bf16 stages card vs cpu (output, input grads, param "
+          "grads; relative L2; bf16 | the card's float32 control): "
+          + "; ".join(f"{k} " + " ".join(f"{v:.2e}" for v in r["bf16"])
+                      + " | " + " ".join(f"{v:.2e}" for v in r["float32"])
+                      for k, r in stages.items())
+          + f"; took {time.time() - t0:.1f} s [{card}]", flush=True)
+    for name, kw in (("compute", dict(TRAIN_COMPUTE_DTYPE="bfloat16")),
+                     ("matching", dict(MATCHING_DTYPE="bfloat16"))):
+        t0 = time.time()
+        b = train_bf16_card_vs_cpu(torch, name, kw)
+        print(f"phase 6b training card vs cpu 65x65 T=2 batch 1 {kw}: {b}, "
+              f"took {time.time() - t0:.1f} s [{card}]", flush=True)
+    t0 = time.time()
+    c = mobilenet_eval(torch, ops, card)
+    print(f"phase 6c mobilenet eval 481x849 22 frames, chunks of 5 as CUDA "
+          f"graphs, steady frames {c['window'][0]}-{c['window'][1]}: "
+          f"{_video_line(c)} p90_ms={c['p90_ms']:.2f} "
+          f"fg_share_last_frame={c['fg_share_last']}; card vs cpu 65x65 "
+          f"lock-step {c['lockstep']}; took {time.time() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    t0 = time.time()
+    d = train_full_width(torch, ops, card, "6d", MODEL_BACKBONE="mobilenet")
+    print(f"phase 6d training mobilenet 465x465 T=5 batch 2 O=6 remat "
+          f"float32: {_train_line(d)}; took {time.time() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    print(f"phase 6 took {time.time() - t_all:.1f} s", flush=True)
+    return c
 
 
 def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(description="smoke run of the port on a GPU")
-    p.add_argument("--only", choices=["5"], default=None,
-                   help="run phase 5 (training) alone")
+    p.add_argument("--only", choices=["5", "6"], default=None,
+                   help="run phase 5 (training) or phase 6 (bf16 training, "
+                        "MobileNet) alone")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -762,10 +1024,10 @@ def main(argv=None) -> int:
 
     # ---- phase 1: the card and the build
     card = _card()
-    if args.only == "5":
-        phase5(torch, ops, card)
+    if args.only:
+        (phase5 if args.only == "5" else phase6)(torch, ops, card)
         print(card)
-        print(json.dumps({"phase5_only": True}))
+        print(json.dumps({f"phase{args.only}_only": True}))
         return 0
     t0 = time.time()
     paths = _cuda.build(["global_seg_map", "local_match", "global_flat_match"])
@@ -1001,7 +1263,8 @@ def main(argv=None) -> int:
           f"gated): "
           f"{chunked}, took {time.time() - t0:.1f} s", flush=True)
 
-    phase5(torch, ops, card)
+    f32_train = phase5(torch, ops, card)
+    mobile = phase6(torch, ops, card, f32_train)
 
     kernels = []
     for key, name, src, rep, n in (
@@ -1030,6 +1293,9 @@ def main(argv=None) -> int:
         if key in ("global", "local"):
             rm, rmp = res[(key + "_mf", True)], res[(key + "_mf", False)]
             entry.update({
+                "mobilenet_launches": mobile["launches"][name],
+                "mobilenet_per_frame": mobile["per_frame"][
+                    "global_seg_map" if key == "global" else name],
                 "ensemble_launches": mf["launches"][name],
                 "ensemble_shape": rm["shape"],
                 "ensemble_max_abs_err": rm["max_abs_err"],

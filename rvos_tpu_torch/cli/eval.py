@@ -10,7 +10,8 @@
     python -m rvos_tpu_torch.cli.eval --synthetic --ckpt_path aoc.pth \
         --min_matching_pixels 0 --shard_id 1 --shard_num 2
 
-Runs on CUDA unless ``--device cpu``.  ``--ckpt_path`` loads a reference
+Runs on CUDA unless ``--device cpu``.  ``--global_chunks`` is accepted
+and does nothing, as in the JAX CLI.  ``--ckpt_path`` loads a reference
 ``.pth``; without it the weights are random, made from ``--seed``.
 ``--dataset davis2016|davis2017`` reads a DAVIS tree (``--davis_root``),
 any other name a YouTube-VOS one (``--ytb_root``; its first annotations
@@ -57,6 +58,8 @@ def build_parser():
     p.add_argument("--jf", action="store_true",
                    help="compute DAVIS J&F against the annotations")
     p.add_argument("--global_atrous_rate", type=int, default=1)
+    p.add_argument("--global_chunks", type=int, default=4,
+                   help="accepted for reference-CLI parity; a no-op")
     p.add_argument("--min_matching_pixels", type=int, default=-1,
                    help="sets MATCHING_MAX_REF_PIXELS (0 disables the cap, "
                         "-1 keeps the preset)")
@@ -91,7 +94,8 @@ def apply_args(cfg, args):
         cfg = cfg.replace(MEM_EVERY=args.mem_every)
     cfg = cfg.replace(UNC_RATIO=args.ucr, TEST_FLIP=args.flip,
                       TEST_MULTISCALE=tuple(args.ms),
-                      TEST_GLOBAL_ATROUS_RATE=args.global_atrous_rate)
+                      TEST_GLOBAL_ATROUS_RATE=args.global_atrous_rate,
+                      TEST_GLOBAL_CHUNKS=args.global_chunks)
     if args.parity:
         cfg = cfg.replace(MATCHING_DTYPE="float32", EVAL_COMPUTE_DTYPE="float32")
     if args.float16:

@@ -3,10 +3,11 @@ card (``torch.profiler``), chunked (CUDA graph replays) or frame by frame.
 
     python -m rvos_tpu_torch.cli.profile_eval [--frames 26] [--layout cap0]
         [--frame_chunk 5] [--size 481 849] [--ms 1.0 1.15 1.3 --flip]
-        [--trace trace.json]
+        [--backbone mobilenet] [--trace trace.json]
 
 Runs the main path of ``chip_smoke.py`` (the ``resnet101_aocnet``
-preset, random weights from a seed, a 3-object synthetic video) under
+preset, random weights from a seed, a 3-object synthetic video; with
+``--backbone mobilenet`` the MobileNetV2 backbone) under
 bank layout ``--layout`` (``configs.BANK_LAYOUTS``) with
 ``TEST_FRAME_CHUNK`` set to ``--frame_chunk`` (default: the preset's;
 1 runs frame by frame), and with ``--ms``/``--flip`` the multi-scale
@@ -133,6 +134,8 @@ def main(argv=None):
     p.add_argument("--flip", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trace", default="")
+    p.add_argument("--backbone", default="resnet",
+                   choices=["resnet", "mobilenet"], help="MODEL_BACKBONE")
     args = p.parse_args(argv)
 
     import torch
@@ -144,7 +147,8 @@ def main(argv=None):
     from ..models import AOCNet
     from ..weights import init_random_
 
-    cfg = get_config(args.config, **BANK_LAYOUTS[args.layout])
+    cfg = get_config(args.config, MODEL_BACKBONE=args.backbone,
+                     **BANK_LAYOUTS[args.layout])
     if args.frame_chunk > 0:
         cfg = cfg.replace(TEST_FRAME_CHUNK=args.frame_chunk)
     if args.flip or tuple(args.ms) != (1.0,):
@@ -156,7 +160,8 @@ def main(argv=None):
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     first = max(ev.chunk_n, cfg.MEM_EVERY, 1) + 1    # first steady frame
-    print(f"card: {card} | layout {args.layout} | frame chunk {ev.chunk_n} "
+    print(f"card: {card} | {args.backbone} | layout {args.layout} | "
+          f"frame chunk {ev.chunk_n} "
           f"| variants {len(ev.variants.flips)} (scales {cfg.TEST_MULTISCALE}, "
           f"flip {cfg.TEST_FLIP}) | steady frames {first}-{args.frames - 1}")
 

@@ -4,6 +4,8 @@ with five objects, O = 6; T = 5; float32 with TF32 for convolutions
 only; remat), random weights from a seed.
 
     python -m rvos_tpu_torch.cli.profile_train --batch 1 2 4
+    python -m rvos_tpu_torch.cli.profile_train --batch 2 \
+        --compute_dtype bfloat16 [--backbone mobilenet]
 
 For each batch size: ``--steps`` steps of ``fit`` timed by CUDA events
 recorded after each step (the steady ms/step is the median of steps 2 on),
@@ -13,13 +15,24 @@ then one more step under ``torch.profiler``: device busy ms (the sum of
 the device events), idle share and kernels per step, and the kernels
 with the most device time.  A batch that does not fit prints the
 out-of-memory message and the next one runs.  Needs a CUDA card.
+
+``--by_stage``: one more step under ``torch.profiler``, its kernels and
+device time by stage of the step (``STAGES``: the innermost named
+operation or range above each kernel's launching operation, with
+ranges opened around the bf16 casts, the resizes and GCT for that step
+only; a backward operation takes the stage of the forward operation
+that made its node, by sequence number), forward and backward apart.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
+import json
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -35,12 +48,16 @@ def train_config(batch: int, steps: int, root: str, **kw):
         DIR_ROOT=root, **kw)
 
 
-def profile_training(torch, cfg, steps: int, seed: int = 0) -> dict:
+def profile_training(torch, cfg, steps: int, seed: int = 0,
+                     inspect=None, by_stage: bool = False) -> dict:
     """Run ``steps`` steps of ``fit`` (then one profiled step) →
     per-step metrics, step times, peak memory, device busy, idle share,
     kernels per step and the top kernels.  The peak is the training's
     own (model, optimizer state, activations): the device memory the
-    caller already held (``held_gb``) is taken off it."""
+    caller already held (``held_gb``) is taken off it.  ``inspect``, when
+    given, is called with the trainer before its first step (a caller
+    hooks its model there) and its result returned as ``inspected``.
+    ``by_stage``: then one more step by stage (``profile_by_stage``)."""
     from ..data import SyntheticTrain, TrainBatcher
     from ..engine.train import Trainer
     from .profile_eval import FILLER, pad_profile
@@ -49,6 +66,7 @@ def profile_training(torch, cfg, steps: int, seed: int = 0) -> dict:
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     trainer = Trainer(cfg, device="cuda", seed=seed)
+    inspected = inspect(trainer) if inspect is not None else None
     data = SyntheticTrain(size=cfg.DATA_RANDOMCROP,
                           curr_len=cfg.DATA_CURR_SEQ_LEN,
                           obj_num=cfg.DATA_MAX_OBJ_NUM,
@@ -81,7 +99,7 @@ def profile_training(torch, cfg, steps: int, seed: int = 0) -> dict:
     peak = (torch.cuda.max_memory_allocated() - held) / 1e9
     moved = max(float((p.detach().cpu() - before[n]).abs().max())
                 for n, p in trainer.model.named_parameters())
-    out = {"rows": rows, "step_ms": step_ms,
+    out = {"rows": rows, "step_ms": step_ms, "inspected": inspected,
            "steady_ms": statistics.median(step_ms[1:]),
            "peak_gb": peak, "held_gb": held / 1e9, "moved": moved}
     out["clips_s"] = cfg.TRAIN_BATCH_SIZE / out["steady_ms"] * 1e3
@@ -110,7 +128,139 @@ def profile_training(torch, cfg, steps: int, seed: int = 0) -> dict:
                  key=lambda e: e.device_time_total, reverse=True)[:12]
     out["top"] = [(e.key[:60], e.device_time_total / 1e3, e.count)
                   for e in top]
+    if by_stage:
+        out["by_stage"] = profile_by_stage(torch, trainer, batcher,
+                                           steps + 2)
     return out
+
+
+# stage of an operation: the first of these found on its profiler parent
+# chain, innermost first (names of operations and of the ranges that
+# ``_spans`` opens); a backward operation takes the stage of the forward
+# operation that made its autograd node
+STAGES = (("bf16 casts", ("bf16 casts",)),
+          ("local matching", ("LocalMatchingMin",)),
+          ("global matching", ("GlobalMatchingMin",)),
+          ("GCT", ("GCT",)),
+          ("resize", ("resize",)),
+          ("group norm", ("aten::group_norm",)),
+          ("convolution", ("aten::conv2d", "aten::convolution")),
+          ("dense", ("aten::linear",)))
+_BWD = "autograd::engine::evaluate_function: "
+# the ranges opened for one profiled step: label → (module, function or
+# Class.method), looked up where the port's modules bind it
+SPANS = {"bf16 casts": ("rvos_tpu_torch.engine.train", "cast_state"),
+         "resize": ("rvos_tpu_torch.ops.resize", "resize_nchw"),
+         "GCT": ("rvos_tpu_torch.models.layers", "GCT.forward")}
+
+
+@contextlib.contextmanager
+def _spans():
+    """``record_function`` ranges around the functions of ``SPANS``
+    while the block runs: every binding of one in the port's loaded
+    modules (or the class attribute of a method) is replaced by a
+    wrapper, and restored after."""
+    from torch.profiler import record_function
+
+    def wrap(fn, label):
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    undo = []
+    for label, (mod_name, name) in SPANS.items():
+        mod = sys.modules[mod_name]
+        if "." in name:
+            cls_name, meth = name.split(".")
+            cls = getattr(mod, cls_name)
+            real = getattr(cls, meth)
+            setattr(cls, meth, wrap(real, label))
+            undo.append((cls, meth, real))
+            continue
+        real = getattr(mod, name)
+        for m in list(sys.modules.values()):
+            if (getattr(m, "__name__", "").startswith("rvos_tpu_torch")
+                    and getattr(m, name, None) is real):
+                setattr(m, name, wrap(real, label))
+                undo.append((m, name, real))
+    try:
+        yield
+    finally:
+        for obj, name, real in undo:
+            setattr(obj, name, real)
+
+
+def _stage_of(e, forward_of, depth: int = 0) -> str:
+    """The stage of profiler event ``e`` (``bwd `` prefixed for the
+    backward, nested backwards included)."""
+    a = e
+    while a is not None:
+        if a.name.startswith(_BWD):
+            f = forward_of.get((a.fwd_thread or a.thread, a.sequence_nr))
+            if f is None or depth > 3:
+                return "bwd unattributed"
+            return "bwd " + _stage_of(f, forward_of, depth + 1
+                                      ).removeprefix("bwd ")
+        for stage, names in STAGES:
+            if a.name in names:
+                return stage
+        a = a.cpu_parent
+    return "other"
+
+
+def stage_breakdown(prof, device: bool = True) -> dict:
+    """Kernels and their device ms (``device``) or operations and their
+    self CPU ms (the CPU) of a profiled step, by stage; ``device``
+    kernels are taken from the device events and their launching
+    operations (``_kernels``: how many of them, of the device events)."""
+    events = prof.events()
+    # the operation that made a node is the last forward operation of
+    # its thread that recorded its sequence number (those before it
+    # record it too; each thread counts its own: a recomputation under
+    # remat runs on the backward's thread)
+    forward_of = {(e.thread, e.sequence_nr): e for e in events
+                  if e.sequence_nr >= 0 and not e.name.startswith("autograd::")
+                  and "Backward" not in e.name}
+    rows = []
+    if device:
+        on_dev = [e for e in events if str(e.device_type).endswith("CUDA")]
+        for e in on_dev:
+            if e.cpu_parent is not None:
+                rows.append((e.cpu_parent, 1, e.device_time_total / 1e3))
+        if len(rows) < 0.9 * len(on_dev):
+            rows = [(e, len(e.kernels),
+                     sum(k.duration for k in e.kernels) / 1e3)
+                    for e in events if e.kernels]
+    else:
+        rows = [(e, 1, e.self_cpu_time_total / 1e3) for e in events
+                if not e.cpu_children and e.name.startswith("aten::")]
+    out = {}
+    for e, n, ms in rows:
+        row = out.setdefault(_stage_of(e, forward_of), [0, 0.0])
+        row[0] += n
+        row[1] += ms
+    out = dict(sorted(out.items(), key=lambda kv: -kv[1][1]))
+    if device:
+        out["_kernels"] = [sum(r[1] for r in rows), len(on_dev)]
+    return out
+
+
+def profile_by_stage(torch, trainer, batcher, steps: int) -> dict:
+    """One more step of ``trainer`` (``fit`` to ``steps``) under
+    ``torch.profiler`` and ``_spans`` → ``stage_breakdown``."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    cuda = trainer.device.type == "cuda"
+    if cuda:
+        acts.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    with _spans(), profile(activities=acts) as prof:
+        trainer.fit(batcher, log_every=1, max_steps=steps)
+        if cuda:
+            torch.cuda.synchronize()
+    return stage_breakdown(prof, cuda)
 
 
 def main(argv=None):
@@ -118,6 +268,13 @@ def main(argv=None):
     p.add_argument("--batch", nargs="+", type=int, default=[1, 2, 4])
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="TRAIN_COMPUTE_DTYPE")
+    p.add_argument("--backbone", default="resnet",
+                   choices=["resnet", "mobilenet"], help="MODEL_BACKBONE")
+    p.add_argument("--by_stage", action="store_true",
+                   help="one more profiled step, kernels by stage")
     args = p.parse_args(argv)
 
     import torch
@@ -128,15 +285,19 @@ def main(argv=None):
                           text=True, check=True).stdout.strip()
     for b in args.batch:
         with tempfile.TemporaryDirectory() as root:
-            cfg = train_config(b, args.steps, root)
+            cfg = train_config(b, args.steps, root,
+                               TRAIN_COMPUTE_DTYPE=args.compute_dtype,
+                               MODEL_BACKBONE=args.backbone)
             try:
-                r = profile_training(torch, cfg, args.steps, args.seed)
+                r = profile_training(torch, cfg, args.steps, args.seed,
+                                     by_stage=args.by_stage)
             except torch.cuda.OutOfMemoryError as e:
                 print(f"batch {b}: out of memory: {str(e).splitlines()[0]} "
                       f"[{card}]", flush=True)
                 torch.cuda.empty_cache()
                 continue
-        print(f"batch {b}: steady {r['steady_ms']:.1f} ms/step (median of "
+        print(f"batch {b} ({args.backbone}, {args.compute_dtype}): steady "
+              f"{r['steady_ms']:.1f} ms/step (median of "
               f"steps 2-{args.steps}; steps "
               f"{[round(t, 1) for t in r['step_ms']]}), "
               f"{r['clips_s']:.3f} clips/s, peak {r['peak_gb']:.3f} GB "
@@ -147,6 +308,11 @@ def main(argv=None):
               flush=True)
         for name, ms, n in r["top"]:
             print(f"  kernel {name:60s} {ms:9.3f} ms x{n}")
+        for stage, (n, ms) in r.get("by_stage", {}).items():
+            if not stage.startswith("_"):
+                print(f"  stage {stage:30s} {ms:9.3f} ms {n:7d} kernels")
+        if "by_stage" in r:
+            print("  stages " + json.dumps(r["by_stage"]), flush=True)
         torch.cuda.empty_cache()
 
 

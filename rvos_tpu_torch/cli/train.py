@@ -11,9 +11,11 @@ Runs on one CUDA card unless ``--device cpu``.  Results go to
 log and ``ckpt/save_step_<N>.pth``; a run resumes from the newest
 checkpoint there, so a finished run starts over only under a new
 ``--exp_name``.  Without ``--pretrained_path`` the weights are random,
-made from ``--seed``.  ``--global_chunks`` is accepted and does nothing,
-as in the JAX CLI.  Not ported, and refused: ``--gpu_num`` above 1
-(ROADMAP Queue A item 8) and ``--float16`` (bfloat16 training, item 7e).
+made from ``--seed``.  ``--float16`` trains with bfloat16 matching
+operands, as the JAX CLI (``MATCHING_DTYPE="bfloat16"``); a preset with
+``TRAIN_COMPUTE_DTYPE="bfloat16"`` runs the forward in bf16.
+``--global_chunks`` is accepted and does nothing, as in the JAX CLI.
+Not ported, and refused: ``--gpu_num`` above 1 (ROADMAP Queue A item 8).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ def build_parser():
     p.add_argument("--total_step", type=int, default=-1)
     p.add_argument("--start_step", type=int, default=-1)
     p.add_argument("--float16", action="store_true",
-                   help="bfloat16 matching (not ported: raises)")
+                   help="bfloat16 matching")
     p.add_argument("--global_atrous_rate", type=int, default=1)
     p.add_argument("--global_chunks", type=int, default=20,
                    help="accepted for reference-CLI parity; a no-op")

@@ -68,6 +68,7 @@ device, which is the JAX package's path on one device as well.
 
 from __future__ import annotations
 
+import gc
 import os
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -586,9 +587,18 @@ class Evaluator:
         for t, s in zip(carried, saved):
             t.copy_(s)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool,
-                              capture_error_mode="thread_local"):
-            self.chunk_step(io, sts, ori_hw)
+        # no garbage collection while capturing: a collected evaluator's
+        # graphs would be destroyed mid-capture, which invalidates it
+        # (``torch.cuda.graph`` collects once before it begins)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
+                self.chunk_step(io, sts, ori_hw)
+        finally:
+            if collecting:
+                gc.enable()
         self.captures += 1
         return graph
 

@@ -38,6 +38,14 @@ import torch
 WEIGHT_NOISE = 1e-6
 FLOOR_FACTOR = 3.0
 UPDATE_TOL = 1e-6
+# bars of the bf16 training routes' whole step against a reference step
+# (the JAX package's on the CPU, the CPU's on a card): per-frame loss
+# (relative), all gradients' relative L2, each tensor's ``rel_tol``.
+# Measured in tests/test_torch_port_train_bf16.py, which says why the
+# bf16-compute bars only bound the step's size (two bf16 computations
+# part as far as bf16 and float32 do after a few layers); that route's
+# power is in its stages alone (``engine.stage_check``).
+BF16_BARS = {"compute": (0.35, 1.6, 2e-2), "matching": (8e-5, 6e-2, 2e-2)}
 
 
 def perturbed_state(state: Dict[str, torch.Tensor], names, seed: int

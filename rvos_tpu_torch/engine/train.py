@@ -19,6 +19,17 @@ A step runs the JAX package's rollout of ``DATA_CURR_SEQ_LEN`` frames:
   each feature extraction and each frame's body.  The ASPP dropout of a
   call draws from a generator made from a seed drawn before the call,
   so a recomputation draws the same mask.
+* ``TRAIN_COMPUTE_DTYPE="bfloat16"``: the forward runs on bf16 copies of
+  every float32 parameter and buffer (the frozen batch norms' statistics
+  too, which the JAX package holds as parameters) through
+  ``torch.func.functional_call``; the casts are differentiated, so the
+  gradients reach the float32 master parameters.  Frames go into the
+  extractor in bf16, embeddings and the decoder memory stay bf16, and
+  the logits go up to the crop in float32 for the loss.  Not
+  ``torch.autocast``: its per-op policy would keep group norms and
+  softmaxes in float32, where the JAX package's bf16 tower does not.
+  With ``MATCHING_DTYPE="bfloat16"`` (``--float16``) the matching takes
+  its bf16 operands (``ops.train_matching``).
 
 Then the optimizer (``learning.TrainOptimizer``): the global norm of
 every gradient, the non-finite skip (parameters and optimizer state
@@ -38,6 +49,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..configs import Config
@@ -53,10 +66,9 @@ from .loss import batched_iou, hard_mining_ce
 def check_train_config(cfg: Config, device: torch.device) -> None:
     """Raise for what this port does not train yet, naming its ROADMAP
     item, instead of running something else."""
-    if cfg.TRAIN_COMPUTE_DTYPE != "float32" or cfg.matching_dtype == "bfloat16":
-        raise NotImplementedError(
-            "bfloat16 training (TRAIN_COMPUTE_DTYPE='bfloat16', --float16, "
-            "bfloat16 matching) is not ported: ROADMAP Queue A item 7e")
+    if cfg.TRAIN_COMPUTE_DTYPE not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"TRAIN_COMPUTE_DTYPE {cfg.TRAIN_COMPUTE_DTYPE!r}")
     if cfg.MESH_MODEL_AXIS > 1:
         raise NotImplementedError(
             "context-parallel training (MESH_MODEL_AXIS > 1) is not "
@@ -67,10 +79,50 @@ def check_train_config(cfg: Config, device: torch.device) -> None:
             f"a data mesh of {min(cfg.MESH_DATA_AXIS, n_dev)} devices: "
             "multi-GPU training is ROADMAP Queue A item 8 (set "
             "MESH_DATA_AXIS=1 or --gpu_num 1)")
-    if cfg.MODEL_BACKBONE != "resnet":
-        raise NotImplementedError(
-            f"backbone {cfg.MODEL_BACKBONE!r}: MobileNet is ROADMAP Queue "
-            "A item 6")
+
+
+def cast_state(module: nn.Module, dtype: torch.dtype
+               ) -> Dict[str, torch.Tensor]:
+    """Every float32 parameter and buffer of ``module`` by name, cast to
+    ``dtype`` (differentiably: a copy's gradient reaches its float32
+    parameter); the others as they are.  ``functional_call(module,
+    cast_state(module, torch.bfloat16), args)`` runs the bf16 forward of
+    the training route."""
+    return {n: t.to(dtype) if t.dtype == torch.float32 else t
+            for n, t in [*module.named_parameters(),
+                         *module.named_buffers()]}
+
+
+class _Methods(nn.Module):
+    """``forward(name, *args)`` calls the wrapped model's method ``name``
+    (a dotted path reaches a submodule's): ``functional_call`` runs a
+    module's ``forward`` only."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, method: str, *args, **kwargs):
+        return _method(self.model, method)(*args, **kwargs)
+
+
+def _method(model: nn.Module, path: str):
+    obj = model
+    for part in path.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def on_copies(model: nn.Module, dtype: torch.dtype):
+    """``net(method, *args)``: ``model``'s method on copies of its float32
+    parameters and buffers in ``dtype`` (``cast_state``); in float32, on
+    the model itself."""
+    if dtype == torch.float32:
+        return lambda method, *args, **kw: _method(model, method)(*args,
+                                                                  **kw)
+    methods = _Methods(model)
+    state = {f"model.{n}": t for n, t in cast_state(model, dtype).items()}
+    return lambda *args, **kw: functional_call(methods, state, args, kw)
 
 
 def _onehot(lab: torch.Tensor, o: int) -> torch.Tensor:
@@ -123,31 +175,35 @@ def make_train_step(cfg: Config, model: AOCNet, optimizer: TrainOptimizer):
     frames) or None (no dropout)."""
     o = min(cfg.DATA_MAX_OBJ_NUM + 1, cfg.MODEL_MAX_OBJ_NUM)
     remat = cfg.TRAIN_REMAT
+    in_dtype = (torch.bfloat16 if cfg.TRAIN_COMPUTE_DTYPE == "bfloat16"
+                else torch.float32)
 
-    def extract(imgs, seed):
+    def extract(net, imgs, seed):
         gen = None
         if seed is not None and cfg.MODEL_ASPP_DROPOUT > 0:
             gen = torch.Generator(device=imgs.device).manual_seed(seed)
-        return model.extract_feature(_normalize(imgs), gen)
+        emb, low = net("extract_feature", _normalize(imgs).to(in_dtype), gen)
+        return emb.to(in_dtype), low.to(in_dtype)
 
-    def run_extract(imgs, seed):
+    def run_extract(net, imgs, seed):
         if remat:
-            return checkpoint(extract, imgs, seed, use_reentrant=False)
-        return extract(imgs, seed)
+            return checkpoint(extract, net, imgs, seed, use_reentrant=False)
+        return extract(net, imgs, seed)
 
-    def frame(step, cur_emb, cur_low, cur_lab_full, ref_emb, ref_onehot,
+    def frame(net, step, cur_emb, cur_low, cur_lab_full, ref_emb, ref_onehot,
               prev_e, prev_l, obj_valid, slots, valid, scores):
         """One rollout frame for every item → (mean mined CE, full-res
         prediction, new memory slots and flags)."""
         one = torch.ones(1, device=cur_emb.device)
         logits, new_slots, new_valid = [], [], []
         for b in range(cur_emb.shape[0]):
-            lg, mem = model.segment_frame(
+            lg, mem = net(
+                "segment_frame",
                 cur_emb[b], cur_low[b], ref_emb[b][None], ref_onehot[b][None],
                 one, prev_e[b], _onehot(prev_l[b], o), obj_valid[b],
                 DecoderMemory(slots[b], valid[b]), scores[b], train=True)
             logits.append(lg)
-            new_slots.append(mem.slots)
+            new_slots.append(mem.slots.to(in_dtype))
             new_valid.append(mem.valid)
         full = resize_nchw(torch.stack(logits).float(),
                            cur_lab_full.shape[-2:], "bilinear")
@@ -161,8 +217,9 @@ def make_train_step(cfg: Config, model: AOCNet, optimizer: TrainOptimizer):
 
     def loss_fn(batch, step: int, key: torch.Tensor, seeds=None):
         seeds = seeds if seeds is not None else (None, None, None)
-        ref_emb, _ = run_extract(batch["ref_img"], seeds[0])
-        prev_emb, _ = run_extract(batch["prev_img"], seeds[1])
+        net = on_copies(model, in_dtype)
+        ref_emb, _ = run_extract(net, batch["ref_img"], seeds[0])
+        prev_emb, _ = run_extract(net, batch["prev_img"], seeds[1])
         b, h, w, _ = ref_emb.shape
         hw = (h, w)
         t_len = batch["curr_img"].shape[0]
@@ -174,11 +231,12 @@ def make_train_step(cfg: Config, model: AOCNet, optimizer: TrainOptimizer):
                      <= batch["obj_num"][:, None]).float()
         ref_onehot = _onehot(ref_lab, o)
         slots = torch.zeros((b, 2, o, cfg.MODEL_HEAD_EMBEDDING_DIM,
-                             (h + 1) // 2, (w + 1) // 2), device=dev)
+                             (h + 1) // 2, (w + 1) // 2), dtype=in_dtype,
+                            device=dev)
         valid = torch.zeros((b, 2), dtype=torch.bool, device=dev)
 
         curr = batch["curr_img"]
-        embs, lows = run_extract(curr.reshape((-1,) + curr.shape[2:]),
+        embs, lows = run_extract(net, curr.reshape((-1,) + curr.shape[2:]),
                                  seeds[2])
         embs = embs.reshape((t_len, b) + embs.shape[1:])
         lows = lows.reshape((t_len, b) + lows.shape[1:])
@@ -191,9 +249,10 @@ def make_train_step(cfg: Config, model: AOCNet, optimizer: TrainOptimizer):
         for t in range(t_len):
             if cfg.TRAIN_SEQ_GRADIENT == "detach":
                 prev_e = prev_e.detach()
-            args = (step, embs[t], lows[t], batch["curr_label"][t], ref_emb,
-                    ref_onehot, prev_e, prev_pred if use_pred else prev_gt,
-                    obj_valid, slots, valid, scores[t])
+            args = (net, step, embs[t], lows[t], batch["curr_label"][t],
+                    ref_emb, ref_onehot, prev_e,
+                    prev_pred if use_pred else prev_gt, obj_valid, slots,
+                    valid, scores[t])
             if remat:
                 loss_t, pred_full, slots, valid = checkpoint(
                     frame, *args, use_reentrant=False)

@@ -29,7 +29,7 @@ from ..ops.matching import (compact_reference_bank,
                             global_matching_flat_segmented, squash_distance)
 from ..ops.train_matching import global_matching_min, local_matching_min
 from .decoder import CalibrationDecoding, DecoderMemory
-from .deeplab import DeepLab
+from .deeplab import BACKBONES, DeepLab
 from .layers import GN, DynamicPreHead
 
 
@@ -65,12 +65,24 @@ class AOCNet(nn.Module):
         self.fg_bias = nn.Parameter(torch.zeros(1))
         self.dynamic_prehead = DynamicPreHead(c.prehead_in_dim,
                                               c.MODEL_PRE_HEAD_EMBEDDING_DIM)
+        # the low-level width comes from the backbone (MobileNet's is 24);
+        # the config field overrides ResNet's only, as in the JAX package
+        if (c.MODEL_BACKBONE == "mobilenet"
+                and c.MODEL_LOW_LEVEL_INPLANES not in (256, 24)):
+            raise ValueError(
+                "MODEL_LOW_LEVEL_INPLANES is derived from the backbone "
+                "(mobilenet low-level features are 24-wide); the config "
+                f"override {c.MODEL_LOW_LEVEL_INPLANES} would be silently "
+                "ignored")
+        low_level_dim = (BACKBONES["mobilenet"][2]
+                         if c.MODEL_BACKBONE == "mobilenet"
+                         else c.MODEL_LOW_LEVEL_INPLANES)
         self.dynamic_seghead = CalibrationDecoding(
             in_dim=c.MODEL_SEMANTIC_EMBEDDING_DIM + c.MODEL_PRE_HEAD_EMBEDDING_DIM,
             attention_dim=c.attention_head_dim,
             embed_dim=c.MODEL_HEAD_EMBEDDING_DIM,
             refine_dim=c.MODEL_REFINE_CHANNELS,
-            low_level_dim=c.MODEL_LOW_LEVEL_INPLANES,
+            low_level_dim=low_level_dim,
             beta_percentage=c.MODEL_BETA_PERCENTAGE)
 
     # ------------------------------------------------------------------
@@ -78,7 +90,7 @@ class AOCNet(nn.Module):
                         generator: Optional[torch.Generator] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[N, H, W, 3] → (embedding [N, h4, w4, emb], low-level
-        [N, h4, w4, 256]).  ``generator`` draws the ASPP dropout mask
+        [N, h4, w4, 256 or 24]).  ``generator`` draws the ASPP dropout mask
         (training); without one the dropout is the identity."""
         feats, low = self.feature_extracter(imgs.permute(0, 3, 1, 2),
                                             generator)
@@ -93,7 +105,7 @@ class AOCNet(nn.Module):
     def segment_frame(
         self,
         current_emb: torch.Tensor,     # [h, w, C]
-        current_low: torch.Tensor,     # [h, w, 256]
+        current_low: torch.Tensor,     # [h, w, 256 or 24]
         ref_emb_bank: torch.Tensor,    # [S, h, w, C]
         ref_onehot: torch.Tensor,      # [S, h, w, O]
         slot_valid: torch.Tensor,      # [S]
@@ -147,8 +159,9 @@ class AOCNet(nn.Module):
 
         # 1. global pixel matching
         if train:
-            d_min = global_matching_min(current_emb.reshape(h * w, -1).float(),
-                                        flat_emb.float(), flat_lab.float())
+            d_min = global_matching_min(
+                current_emb.reshape(h * w, -1).to(dtype), flat_emb.to(dtype),
+                flat_lab.to(dtype))
             global_fg = squash_distance(d_min.reshape(h, w, o)[..., None],
                                         bias)
         elif seg_bank:

@@ -1,9 +1,9 @@
 """DeepLabv3+ feature extractor (PyTorch port of
-``rvos_tpu/models/deeplab.py``): ResNet-101 (OS 16) → ASPP (frozen BN,
-2048→1280→256, then dropout) → decoder (low-level 256→48, concat 304 →
-two 3×3 convs → 256) at stride 4.  The JAX package's ``ShiftConv3x3`` is
-a TPU layout workaround with a plain conv's parameters; here it is
-``nn.Conv2d``.
+``rvos_tpu/models/deeplab.py``): ResNet-101 (OS 16) or MobileNetV2 →
+ASPP (frozen BN, 2048 or 320→1280→256, then dropout) → decoder
+(low-level 256 or 24→48, concat 304 → two 3×3 convs → 256) at stride
+4.  The JAX package's ``ShiftConv3x3`` is a TPU layout workaround with
+a plain conv's parameters; here it is ``nn.Conv2d``.
 
 The ASPP dropout (``MODEL_ASPP_DROPOUT``) draws its mask from the
 explicit ``torch.Generator`` passed to ``forward``; without one (every
@@ -19,7 +19,13 @@ import torch
 from torch import nn
 
 from ..ops.resize import resize_nchw
+from .mobilenet import MobileNetV2
 from .resnet import FrozenBatchNorm2d, ResNet101
+
+# backbone → (module, feature width, low-level width), the reference's
+# ``build_backbone`` dispatch
+BACKBONES = {"resnet": (ResNet101, 2048, 256),
+             "mobilenet": (MobileNetV2, 320, 24)}
 
 
 class DeepLabASPP(nn.Module):
@@ -71,18 +77,17 @@ class DeepLabDecoder(nn.Module):
 
 class DeepLab(nn.Module):
     """[N, 3, H, W] → (decoder features [N, 256, H/4, W/4], low-level
-    [N, 256, H/4, W/4])."""
+    [N, 256 or 24, H/4, W/4])."""
 
     def __init__(self, output_stride: int = 16, backbone: str = "resnet",
                  dropout_rate: float = 0.1):
         super().__init__()
-        if backbone != "resnet":
-            raise NotImplementedError(
-                f"backbone {backbone!r}: the port has ResNet-101 only "
-                "(MobileNet is ROADMAP Queue A item 6)")
-        self.backbone = ResNet101(output_stride)
-        self.aspp = DeepLabASPP(dropout_rate=dropout_rate)
-        self.decoder = DeepLabDecoder()
+        if backbone not in BACKBONES:
+            raise ValueError(f"unknown backbone {backbone!r}")
+        net, width, low_width = BACKBONES[backbone]
+        self.backbone = net(output_stride)
+        self.aspp = DeepLabASPP(width, dropout_rate)
+        self.decoder = DeepLabDecoder(low_width)
 
     def forward(self, x, generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

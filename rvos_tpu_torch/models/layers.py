@@ -7,6 +7,14 @@ saliency) and DynamicPreHead.  The JAX package's ``ShiftConv3x3``,
 with a plain conv's parameters; here they are ``nn.Conv2d``.  Gate
 statistics accumulate in float32 and the gates are cast back to the
 activation dtype.
+
+In a bfloat16 tower GCT takes the JAX package's two-stage statistics:
+bf16 squares, their bf16 partial sums over 8-wide column chunks (each
+accumulated in float32 and rounded once), float32 sums of the partials.
+GN stays ``nn.GroupNorm`` (float32 statistics, one rounding of the
+output): JAX's folded bf16 form, mirrored, cost 16–20 ms of a 52–57 ms
+eval frame and 2.2 GB of the bf16 training step's peak on an H100 and
+moved no whole-step comparison (``PERF.md`` §6).
 """
 
 from __future__ import annotations
@@ -30,7 +38,19 @@ class GCT(nn.Module):
         self.beta = nn.Parameter(torch.zeros(1, channels, 1, 1))
 
     def forward(self, x):
-        sumsq = x.float().square().sum(dim=(2, 3), keepdim=True)
+        if x.dtype == torch.bfloat16:
+            # JAX zero-pads the width to a multiple of 8: the last chunk
+            # is the sum of the columns left over
+            w8 = x.shape[-1] // 8 * 8
+            sq = x.square()
+            part = sq[..., :w8].unflatten(-1, (-1, 8)).sum(-1)
+            sumsq = part.sum(dim=(2, 3), keepdim=True, dtype=torch.float32)
+            if w8 < x.shape[-1]:
+                tail = sq[..., w8:].sum(-1)
+                sumsq = sumsq + tail.sum(-1, keepdim=True,
+                                         dtype=torch.float32)[..., None]
+        else:
+            sumsq = x.float().square().sum(dim=(2, 3), keepdim=True)
         emb = torch.sqrt(sumsq + self.epsilon) * self.alpha.float()
         norm = self.gamma.float() / torch.sqrt(
             emb.square().mean(dim=1, keepdim=True) + self.epsilon)

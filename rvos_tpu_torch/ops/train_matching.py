@@ -28,10 +28,26 @@ pairs:
   ``[S, h, w, O, n_r]``, channel order ``[full radius, radii[:-1]]``.
   A 5e4 winner gets no gradient, as in JAX (a constant there).
 
-JAX's gradient of ``min`` splits a tie among the equal entries; these
-give it all to the winner.  Exact float32 ties are rare away from the
-5e4 sentinel, where the squash saturates and the gradient is ~0 either
-way.
+JAX's gradient of ``min`` splits a tie among the equal entries; the
+float32 routes give it all to the winner.  Exact float32 ties are rare
+away from the 5e4 sentinel, where the squash saturates and the gradient
+is ~0 either way.
+
+bfloat16 inputs (bf16 training, ``MATCHING_DTYPE="bfloat16"``):
+
+* ``GlobalMatchingMin`` computes in float32 from the bf16 operands (the
+  JAX VJP's ``preferred_element_type=float32``) and returns the
+  gradients in the inputs' dtype.
+* ``LocalMatchingMin`` takes JAX's bf16 route: the distance cube
+  ``(‖x‖² + ‖y′‖²) − 2x·y′`` rounded to bf16 at each operation (norms
+  and cross terms accumulated in float32, then rounded), mins in bf16.
+  On a bf16 cube ties are common, so its backward reproduces JAX's
+  split: the mins are recomputed from the saved cube with autograd in
+  the JAX scan's own order (``_ROW_GROUP`` window rows a step, nested
+  radius windows, the running min), where ``amin`` spreads a tie evenly
+  and ``minimum`` halves it, as ``jnp.min`` and ``jnp.minimum`` do;
+  the cube's gradient then goes back to ``x`` and ``ys`` a window row
+  at a time.
 """
 
 from __future__ import annotations
@@ -45,6 +61,10 @@ from .cuda_local import _window
 
 _PEN = 5e4
 _VJP_TILE_R = 4096
+# window rows per step of the JAX package's local-matching scan
+# (``LOCAL_MATCH_ROW_GROUP``'s default); it fixes how a bf16 tie's
+# gradient is split
+_ROW_GROUP = 5
 
 
 def global_min_argmin(q: torch.Tensor, r: torch.Tensor, lab: torch.Tensor,
@@ -88,20 +108,27 @@ def global_min_backward(q: torch.Tensor, r: torch.Tensor, amin: torch.Tensor,
     return gd.sum(1), dr.to(r.dtype)
 
 
+def _arith_dtype(t: torch.Tensor) -> torch.dtype:
+    """float32 for bf16 or float32 operands, float64 for float64."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 class GlobalMatchingMin(torch.autograd.Function):
     """[M, O] per-object min distances over a flat bank; gradients to
     ``q`` and ``r`` through the argmin pairs only."""
 
     @staticmethod
     def forward(ctx, q, r, lab):
-        dmin, amin = global_min_argmin(q, r.to(q.dtype), lab)
+        dt = _arith_dtype(q)
+        dmin, amin = global_min_argmin(q.to(dt), r.to(dt), lab)
         ctx.save_for_backward(q, r, amin)
         return dmin
 
     @staticmethod
     def backward(ctx, g):
-        dq, dr = global_min_backward(*ctx.saved_tensors, g)
-        return dq, dr, None
+        q, r, amin = ctx.saved_tensors
+        dq, dr = global_min_backward(q.to(_arith_dtype(q)), r, amin, g)
+        return dq.to(q.dtype), dr, None
 
 
 def global_matching_min(q: torch.Tensor, r: torch.Tensor,
@@ -187,21 +214,119 @@ def local_min_backward(x: torch.Tensor, ys: torch.Tensor, labels: torch.Tensor,
     return gd.sum((0, 3, 4)), dys.to(ys.dtype)
 
 
+def _bf16_row(x: torch.Tensor, ys: torch.Tensor, dy: int, pad_d: int,
+              a: int) -> torch.Tensor:
+    """Window row ``dy`` of JAX's bf16 distance cube → [S, h, w, K] bf16:
+    ``(‖x‖² + ‖y′‖²) − 2·x·y′`` rounded at each operation, the norms and
+    the cross terms accumulated in float32 from the bf16 operands."""
+    s_n, h, w, c = ys.shape
+    bf = torch.bfloat16
+    x2 = x.float().square().sum(-1).to(bf)                        # [h, w]
+    oy = dy * a
+    y2p = F.pad(ys.float().square().sum(-1), (pad_d,) * 4, value=_PEN)
+    cols2 = y2p[:, oy:oy + h].unfold(2, w, a).permute(0, 1, 3, 2).to(bf)
+    yp = F.pad(ys, (0, 0) + (pad_d,) * 4)
+    band = yp[:, oy:oy + h].unfold(2, w, a)                   # [S,h,K,C,w]
+    cross = torch.einsum("shkcw,hwc->shwk", band.float(), x.float()).to(bf)
+    return (x2[None, :, :, None] + cols2) - 2.0 * cross
+
+
+def _bf16_cube(x, ys, pad_d, a, k) -> torch.Tensor:
+    """The whole bf16 distance cube [S, K (rows), h, w, K (columns)]."""
+    return torch.stack([_bf16_row(x, ys, dy, pad_d, a) for dy in range(k)],
+                       1)
+
+
+def _bf16_tree_mins(cube: torch.Tensor, labels: torch.Tensor,
+                    radii: Sequence[int], atrous_rate: int) -> torch.Tensor:
+    """The multi-radius masked mins of a bf16 cube in the JAX scan's
+    order of operations → [S, h, w, O, n_r] float32 (differentiable in
+    ``cube``, with JAX's split of a tied gradient)."""
+    order, a_max, pad_d = _window(radii, atrous_rate)
+    a = atrous_rate
+    s_n, k, h, w, _ = cube.shape
+    o = labels.shape[-1]
+    g_n = min(_ROW_GROUP, k)
+    n_steps = -(-k // g_n)
+    dev = cube.device
+    labp = F.pad(labels.float(), (0, 0) + (pad_d,) * 4)
+    # label of the shifted pixel, [K rows, h, w, K cols, O]; rows past
+    # the window (the ragged last group) carry none
+    lab = torch.stack([labp[dy * a:dy * a + h].unfold(1, w, a)
+                       .permute(0, 3, 1, 2) > 0.9 for dy in range(k)])
+    extra = n_steps * g_n - k
+    if extra:
+        cube = torch.cat([cube, cube.new_zeros(
+            (s_n, extra) + cube.shape[2:])], 1)
+        lab = torch.cat([lab, lab.new_zeros((extra,) + lab.shape[1:])])
+    pen = torch.tensor(_PEN, dtype=cube.dtype, device=dev)
+    inf = torch.tensor(float("inf"), dtype=cube.dtype, device=dev)
+    asc = sorted(set(order))
+    carry = [torch.full((s_n, h, w, o), float("inf"), dtype=cube.dtype,
+                        device=dev) for _ in order]
+    for step in range(n_steps):
+        rows = slice(step * g_n, (step + 1) * g_n)
+        dm = torch.where(lab[rows][None], cube[:, rows][..., None], pen)
+        cands, cur, lo_p, hi_p = {}, None, None, None
+        for r in asc:
+            lo, hi = a_max - r, a_max + r + 1
+            if cur is None:
+                cur = dm[:, :, :, :, lo:hi].amin(4)              # [S,G,h,w,O]
+            else:
+                if lo < lo_p:
+                    cur = torch.minimum(cur, dm[:, :, :, :, lo:lo_p].amin(4))
+                if hi > hi_p:
+                    cur = torch.minimum(cur, dm[:, :, :, :, hi_p:hi].amin(4))
+            cands[r], lo_p, hi_p = cur, lo, hi
+        dy_off = (torch.arange(step * g_n, (step + 1) * g_n, device=dev)
+                  - a_max).abs()
+        for i, r in enumerate(order):
+            gate = (dy_off <= r)[None, :, None, None, None]
+            carry[i] = torch.minimum(
+                carry[i], torch.where(gate, cands[r], inf).amin(1))
+    return torch.stack(carry, -1).float()
+
+
 class LocalMatchingMin(torch.autograd.Function):
-    """``[S, h, w, O, n_r]`` windowed multi-radius masked mins; gradients
-    to ``x`` and ``ys`` through the winning offsets only."""
+    """``[S, h, w, O, n_r]`` windowed multi-radius masked mins.  Float32
+    (float64) inputs: gradients to ``x`` and ``ys`` through the winning
+    offsets only.  bf16 inputs: JAX's bf16 cube and its tie split."""
 
     @staticmethod
     def forward(ctx, x, ys, labels, radii, atrous_rate):
+        ctx.window = (radii, atrous_rate)
+        if x.dtype == torch.bfloat16:
+            _, a_max, pad_d = _window(radii, atrous_rate)
+            cube = _bf16_cube(x, ys.to(x.dtype), pad_d, atrous_rate,
+                              2 * a_max + 1)
+            ctx.save_for_backward(x, ys, labels, cube)
+            return _bf16_tree_mins(cube, labels, radii, atrous_rate)
         out, idx = local_min_argmin(x, ys, labels, radii, atrous_rate)
         ctx.save_for_backward(x, ys, labels, idx)
-        ctx.window = (radii, atrous_rate)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        dx, dys = local_min_backward(*ctx.saved_tensors, g, *ctx.window)
-        return dx, dys, None, None, None
+        saved = ctx.saved_tensors
+        if saved[0].dtype != torch.bfloat16:
+            dx, dys = local_min_backward(*saved, g, *ctx.window)
+            return dx, dys, None, None, None
+        x, ys, labels, cube = saved
+        radii, a = ctx.window
+        _, a_max, pad_d = _window(radii, a)
+        k = 2 * a_max + 1
+        with torch.enable_grad():
+            leaf = cube.detach().requires_grad_()
+            g_cube, = torch.autograd.grad(
+                _bf16_tree_mins(leaf, labels, radii, a), leaf, g)
+            # the cube's gradient back to the operands one window row at
+            # a time (each row's graph is freed before the next)
+            xl = x.detach().float().requires_grad_()
+            yl = ys.detach().float().requires_grad_()
+            for dy in range(k):
+                row = _bf16_row(xl.to(x.dtype), yl.to(x.dtype), dy, pad_d, a)
+                torch.autograd.backward(row, g_cube[:, dy])
+        return xl.grad.to(x.dtype), yl.grad.to(ys.dtype), None, None, None
 
 
 def local_matching_min(x: torch.Tensor, ys: torch.Tensor,

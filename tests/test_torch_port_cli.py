@@ -29,6 +29,7 @@ _ARGV = [
     ["--dataset", "davis2017", "--davis_root", "D", "--perturb", "3",
      "--all_labels", "--jf"],
     ["--ms", "1.0", "1.5", "--flip"],
+    ["--global_chunks", "8", "--min_matching_pixels", "0"],
 ]
 
 
@@ -153,15 +154,39 @@ def test_train_cli_runs_on_the_cpu(tmp_path):
     assert "Itr:" not in again.stdout
 
 
+def test_train_cli_float16_trains_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """``--float16 --device cpu``: two steps with bfloat16 matching, each
+    with a finite loss, and the run's config says bfloat16 matching."""
+    import re
+
+    from rvos_tpu_torch.cli import train as train_cli
+    from rvos_tpu_torch.engine import train as train_engine
+    monkeypatch.chdir(tmp_path)
+    seen = []
+    real = train_engine.Trainer.__init__
+
+    def init(self, cfg, *a, **k):
+        seen.append(cfg.matching_dtype)
+        real(self, cfg, *a, **k)
+
+    monkeypatch.setattr(train_engine.Trainer, "__init__", init)
+    train_cli.main(["--config", "tiny_test", "--synthetic", "--total_step",
+                    "2", "--float16", "--device", "cpu"])
+    out = capsys.readouterr().out
+    itr = re.findall(r"^Itr:(\d+), .*L:(\S+) IoU", out, re.M)
+    assert [int(i) for i, _ in itr] == [1, 2], out
+    assert all(np.isfinite(float(v)) for _, v in itr)
+    assert seen == ["bfloat16"]
+
+
 @pytest.mark.parametrize("argv,error", [
-    (["--float16", "--device", "cpu"], NotImplementedError),
     (["--gpu_num", "2", "--device", "cpu"], NotImplementedError),
     ([], RuntimeError),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, argv,
                                                error):
-    """bfloat16 training and several GPUs are not ported; without
-    ``--device cpu`` and without a card the CLI raises."""
+    """Several GPUs are not ported; without ``--device cpu`` and without a
+    card the CLI raises."""
     from rvos_tpu_torch.cli import train as train_cli
     if not argv and torch.cuda.is_available():
         pytest.skip("a card is visible")

@@ -625,3 +625,92 @@ def test_train_update_on_card_matches_cpu(dev, no_tf32):
     r = update_check(gpu, cpu, grads)
     assert not r["failures"], r
     assert r["no_update"] and r["lr_1.01"], r
+
+
+@pytest.mark.parametrize("route", ["compute", "matching"])
+def test_bf16_train_loss_fn_on_card_matches_cpu(dev, route):
+    """One ``loss_fn`` with gradients of a bf16 route
+    (``TRAIN_COMPUTE_DTYPE="bfloat16"``; bfloat16 matching) on the card
+    and on the CPU from the same weights, batch and draws, TF32 off and
+    the decoder masks shared: losses, all gradients and each tensor
+    (against three times the CPU's floor) within the route's bars
+    (``engine.grad_check.BF16_BARS``); no kernel launched."""
+    from rvos_tpu_torch.device import tf32_off
+    from rvos_tpu_torch.engine.grad_check import (BF16_BARS, floors,
+                                                  gradient_failures,
+                                                  perturbed_state)
+    from rvos_tpu_torch.engine.lockstep import _MaskWatch
+    from rvos_tpu_torch.engine.train import Trainer, batch_to_device
+    from rvos_tpu_torch.ops import prng
+
+    kw = (dict(TRAIN_COMPUTE_DTYPE="bfloat16", MATCHING_DTYPE="mixed")
+          if route == "compute" else dict(MATCHING_DTYPE="bfloat16"))
+    cfg = _train_config().replace(**kw)
+    cpu = Trainer(cfg, device="cpu", seed=0)
+    gpu = Trainer(cfg, device="cuda", init_state=cpu.model.state_dict())
+    watch = _MaskWatch(gpu.model, cpu.model, True)
+    batch = _train_batch()
+    key = prng.next_step_key(prng.prng_key(prng.TRAIN_SEED))[1]
+
+    def grads(tr):
+        tr.optimizer.zero_grad()
+        watch.begin(10 ** 9)
+        loss, (losses, _, _) = tr._step_fn.loss_fn(
+            batch_to_device(batch, tr.device), 3, key.to(tr.device))
+        loss.backward()
+        return losses.detach().cpu(), {
+            n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()
+            if p.grad is not None}
+
+    counters = [ops.global_seg_map, ops.global_seg, ops.global_flat_min,
+                ops.local_match]
+    for fn in counters:
+        fn.launches = 0
+    with tf32_off():
+        gl, gg = grads(gpu)
+        assert [fn.launches for fn in counters] == [0, 0, 0, 0]
+        cl, cg = grads(cpu)
+        names = [n for n, _ in cpu.model.named_parameters()]
+        state = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+        runs = []
+        for seed in range(3):
+            cpu.model.load_state_dict(perturbed_state(state, names, seed))
+            runs.append(grads(cpu)[1])
+    loss_bar, l2_bar, rel_tol = BF16_BARS[route]
+    assert ((gl - cl).abs() / cl.abs()).max() <= loss_bar, (gl, cl)
+    bad, summary = gradient_failures(gg, cg, floors(cg, runs), rel_tol)
+    assert not bad and not watch.unexplained, (bad[:10], summary)
+    assert summary["all_l2_rel"] <= l2_bar, summary
+
+
+def test_bf16_stages_on_card_match_cpu(dev):
+    """Every stage of the bf16 training route alone
+    (``engine.stage_check``), card against CPU from the same bf16
+    inputs and output gradient, TF32 off: output, input and parameter
+    gradients within ``stage_check.CARD_BARS``, each bar below the gap
+    of the card's float32 run of the stage."""
+    from rvos_tpu_torch.device import tf32_off
+    from rvos_tpu_torch.engine.stage_check import stage_gaps
+    from rvos_tpu_torch.engine.train import Trainer
+
+    cfg = _train_config().replace(MATCHING_DTYPE="mixed")
+    cpu = Trainer(cfg, device="cpu", seed=0)
+    gpu = Trainer(cfg, device="cuda", init_state=cpu.model.state_dict())
+    with tf32_off():
+        r = stage_gaps(cpu.model, gpu.model, seed=1)
+    assert not r["failures"], {k: r["stages"][k] for k in r["failures"]}
+
+
+@pytest.mark.parametrize("matching", ["float32", "mixed"])
+def test_mobilenet_evaluator_lockstep_on_card_matches_cpu(dev, matching):
+    """The MobileNetV2 model through the evaluator, each frame repeated on
+    the CPU from the card's state: the gate holds and B.1 and B.4 launch
+    on every frame after the first."""
+    cfg = parity_config("occupancy", matching).replace(
+        MODEL_BACKBONE="mobilenet")
+    n0, l0 = ops.global_seg_map.launches, ops.local_match.launches
+    res = lockstep_masks(cfg, _make_model(cfg), _make_seq(), parity_scores)
+    assert ops.global_seg_map.launches - n0 == 5
+    assert ops.local_match.launches - l0 == 5
+    assert len(res.agree) == 5 and not gate_failures(res), res
+    assert res.max_demb < 1e-3

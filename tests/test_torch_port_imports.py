@@ -41,7 +41,8 @@ def test_no_jax_or_reference_imports(path):
 
 # modules whose JAX counterparts import jax, optax, orbax, cv2 or PIL at
 # the top (the pipeline, loader, datasets, perturbations, metrics, the
-# training engine, its losses, optimizer, checkpoints, logging and CLI):
+# training engine, its losses, optimizer, checkpoints, logging and CLI,
+# the MobileNet backbone):
 # the port keeps its own copies, and the checks here must cover them
 _STANDALONE = ("data/datasets.py", "data/loader.py", "data/perturb.py",
                "data/transforms.py", "engine/eval.py",
@@ -51,7 +52,7 @@ _STANDALONE = ("data/datasets.py", "data/loader.py", "data/perturb.py",
                "ops/train_matching.py", "cli/train.py",
                "cli/profile_train.py", "utils/davis_metrics.py",
                "utils/eval_zip.py", "utils/meters.py", "utils/logging.py",
-               "utils/image.py")
+               "utils/image.py", "models/mobilenet.py")
 
 
 @pytest.mark.parametrize("rel", _STANDALONE)

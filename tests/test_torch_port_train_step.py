@@ -389,10 +389,7 @@ def test_training_route_calls_no_kernel(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(TRAIN_COMPUTE_DTYPE="bfloat16"), "7e"),
-    (dict(MATCHING_DTYPE="bfloat16"), "7e"),
     (dict(MESH_MODEL_AXIS=2), "item 8"),
-    (dict(MODEL_BACKBONE="mobilenet"), "item 6"),
 ])
 def test_unported_settings_raise(kw, what):
     with pytest.raises(NotImplementedError, match=what):
