@@ -36,7 +36,8 @@ Phases, one line each (a failing phase raises and exits non-zero):
    its kernel-2 launch): the layout's global kernel and kernel 2 must run
    on every frame after the first.  A line before it gives the time of the
    default k-means draws (``ops.prng``) per frame;
-3b. the graph path under each other bank layout — no cap
+3b. the graph path, on the video's first 12 frames (one steady chunk),
+   under each other bank layout — no cap
    (``MATCHING_MAX_REF_PIXELS=0``) and the fg-union bank
    (``MATCHING_SEGMENTED_BANK=False``) through kernel 3, the
    uniform-quota bank (``MATCHING_OCCUPANCY_BANK=False``) through B.2 —
@@ -72,8 +73,8 @@ Phases, one line each (a failing phase raises and exits non-zero):
    ``SyntheticTrain`` 465×465 clips with five objects (O = 6) through
    ``TrainBatcher`` (two loader threads), T = 5, batch 2, remat, float32
    (TF32 for convolutions only), burn-in from step 3, hard mining over 4
-   steps, 5 steps: per step the loss, IoU, grad norm and learning rate,
-   then the steady ms/step (median of steps 2–5, CUDA events), clips/s,
+   steps, 3 steps: per step the loss, IoU, grad norm and learning rate,
+   then the steady ms/step (median of steps 2–3, CUDA events), clips/s,
    the peak memory, and from ``torch.profiler`` over one more step the
    device busy ms, idle share and kernels per step; every loss and norm
    finite, the parameters moved, and the four kernels' launch counters
@@ -125,11 +126,46 @@ Phases, one line each (a failing phase raises and exits non-zero):
    the first), its steady median and p90 ms/frame, peak and each
    object's foreground share on the last frame; then card against CPU
    at 65×65 in lock-step, float32 and mixed matching, through the gate;
-   6d. batch-2 float32 MobileNet steps at 465×465 (``fit`` of 5 steps,
-   the median of steps 2–5), ms/step and peak.
+   6d. batch-2 float32 MobileNet steps at 465×465 (``fit`` of 3 steps,
+   the median of steps 2–3), ms/step and peak.
 
-``python3 chip_smoke.py --only 5`` (or ``--only 6``) runs that phase
-alone.
+7. several GPUs, driven on the one card (a device list may repeat a
+   device; NCCL refuses two ranks on one card, so two ranks run over
+   gloo):
+   7a. data-parallel training at phase 5a's width in parity precision
+   (float32 matching, TF32 off): two ranks spawned by
+   ``parallel.launch`` on the card over gloo, a global batch of two (one
+   item each), two steps: the reduced gradient must be the mean of the
+   ranks' own bit for bit, both ranks' parameters equal and each the
+   optimizer's update of that gradient (within ``UPDATE_TOL``); against
+   the per-item average made here from the same weights, batch, key and
+   dropout seeds (``engine.dp_check.per_item_steps``; the card's
+   backward is not run-to-run deterministic) the loss within 1e-4 and
+   the gradients within 5b's bars with the ``grad_check`` floor; against
+   one process at batch 2 the same bars, all gradients within the larger
+   of 2e-2 and three times the floor runs' own L2 spread; then one NCCL
+   step at world size 1 in this process: its reduce an identity, its
+   loss the plain step's.  Per-rank ms/step (the second step; two ranks
+   sharing one card: not a data-parallel speed), the reduce's ms and
+   bytes, peaks, kernel counters 0;
+   7b. phase 3's path with ``MESH_MODEL_AXIS=2`` over ``[cuda:0] * 2``:
+   the graph path timed beside phase 3's, the profiler seeing B.3 twice a
+   frame (once per query-row shard) and B.1 never; frame by frame in
+   lock-step with the unsharded evaluator (float32 compute) through the
+   gate; then at phase 2's shapes B.3 on 2 and 3 query-row shards and on
+   2 and 3 bank shards, over the occupancy bank and the full bank,
+   float32 and mixed, each equal to one launch bit for bit, with the
+   two-shard split timed beside one B.3 launch and B.1;
+   7c. phase 3c's ensemble sharded over ``[cuda:0] * 2`` (a scale group
+   per device) and ``[cuda:0] * 6`` (a variant per device), frame by
+   frame, timed beside phase 3c and profiled (B.1 and B.4 six times a
+   frame), then in lock-step with the one-device ensemble, the reference
+   embedding its own frames (``lockstep_chunks(own_features=True)``),
+   through the gate (a variant per device in parity precision).
+
+``python3 chip_smoke.py --only 5`` (or ``--only 6``, ``--only 7``) runs
+that phase alone (phase 7 with its own unsharded runs of phases 3 and
+3c).
 
 Every lock-step comparison with the CPU passes the gate of
 ``engine.lockstep.gate_failures``: masks agree on ≥ 99.9 % of every
@@ -148,6 +184,7 @@ without a CUDA device.
 
 from __future__ import annotations
 
+import copy
 import json
 import re
 import subprocess
@@ -397,35 +434,57 @@ def kernels_per_frame(torch, ev, seq):
     the record (``profile_eval.pad_profile``) and must show in it."""
     from torch.profiler import ProfilerActivity, profile
 
-    from rvos_tpu_torch.cli.profile_eval import FILLER, pad_profile
+    from rvos_tpu_torch.cli.profile_eval import (FILLER, device_records,
+                                                 pad_profile)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         ev.evaluate_sequence(seq)
         torch.cuda.synchronize()
         pad_profile(torch)
-    names = [e.name for e in sorted(
-        (e for e in prof.events() if str(e.device_type).endswith("CUDA")),
-        key=lambda e: e.time_range.start)]
+    names = [name for name, _, _ in device_records(prof)]
     if not any(FILLER in n for n in names):
         raise AssertionError("the profiler lost the end of its record")
     n_var = len(ev.variants.flips)
     counts = {k: [0] for k in PROFILED}
+    matches = {}                # kernel name -> the PROFILED keys it matches
     for name in names:
-        for k, pat in PROFILED.items():
-            if re.search(pat, name):
-                counts[k][-1] += 1
+        if name not in matches:
+            matches[name] = [k for k, pat in PROFILED.items()
+                             if re.search(pat, name)]
+        for k in matches[name]:
+            counts[k][-1] += 1
         if counts["local_match"][-1] == n_var:
             for c in counts.values():
                 c.append(0)
     return {k: c[:-1] for k, c in counts.items() if sum(c)}
 
 
-def run_video(torch, ops, ev, seq, global_kernel, window):
+class _Head:
+    """The first ``n`` frames of a video."""
+
+    def __init__(self, seq, n: int):
+        self.seq, self.n = seq, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        if not 0 <= i < self.n:
+            raise IndexError(i)
+        return self.seq[i]
+
+    def __getattr__(self, name):
+        return getattr(self.seq, name)
+
+
+def run_video(torch, ops, ev, seq, global_kernel, window,
+              profile_frames=None):
     """Stream ``seq`` with every launch counter set to 0 just before and a
     CUDA event recorded as each frame's step is issued (no host
-    synchronisation); then stream it again under the profiler.  The
-    layout's global kernel and kernel 2 must have launched, and the
-    profiler must see them on every frame after the first.  Returns the
-    output and the numbers phase 3 prints."""
+    synchronisation); then stream it again under the profiler (its first
+    ``profile_frames`` frames, default all).  The layout's global kernel
+    and kernel 2 must have launched, and the profiler must see them on
+    every frame after the first.  Returns the output and the numbers
+    phase 3 prints."""
     from rvos_tpu_torch.cli.profile_eval import steady_frame_ms, video_steps
     ends = []
 
@@ -465,11 +524,12 @@ def run_video(torch, ops, ev, seq, global_kernel, window):
     lo, hi = window
     per_frame = steady_frame_ms(ends[:hi + 1], video_steps(ev, hi + 1), lo)
     steady_ms = ends[lo - 1].elapsed_time(ends[hi]) / (hi - lo + 1)
-    profiled = kernels_per_frame(torch, ev, seq)
+    prof_seq = seq if profile_frames is None else _Head(seq, profile_frames)
+    profiled = kernels_per_frame(torch, ev, prof_seq)
     n_var = len(ev.variants.flips)
     for k in (PROFILED_GLOBAL[global_kernel], "local_match"):
         got = profiled.get(k, [])
-        if len(got) != len(seq) - 1 or min(got) < n_var:
+        if len(got) != len(prof_seq) - 1 or min(got) < n_var:
             raise AssertionError(f"profiler: {k} per frame {got}")
     ranked = sorted(per_frame)
     return dict(out=out, launches=launches, steady_ms=steady_ms,
@@ -502,7 +562,7 @@ def _kernel_counters(ops):
             ("global_seg_map", "global_seg", "global_flat_min", "local_match")}
 
 
-def train_full_width(torch, ops, card, phase="5a", steps=5, inspect=None,
+def train_full_width(torch, ops, card, phase="5a", steps=3, inspect=None,
                      **kw) -> dict:
     """Phase 5a (and 6a, 6d with ``kw`` set): ``Trainer.fit`` at full
     width, batch 2, counters from 0."""
@@ -995,12 +1055,439 @@ def phase6(torch, ops, card, f32=None) -> dict:
     return c
 
 
+def _global_batches(cfg, n: int):
+    """The first ``n`` global batches of ``SyntheticTrain`` at ``cfg``'s
+    crop, objects and batch, as phase 5a's loader makes them."""
+    from rvos_tpu_torch.cli.train import train_transform
+    from rvos_tpu_torch.data import SyntheticTrain, TrainBatcher
+    data = SyntheticTrain(size=cfg.DATA_RANDOMCROP,
+                          curr_len=cfg.DATA_CURR_SEQ_LEN,
+                          obj_num=cfg.DATA_MAX_OBJ_NUM,
+                          length=cfg.TRAIN_BATCH_SIZE * n)
+    return list(TrainBatcher(data, cfg.TRAIN_BATCH_SIZE,
+                             train_transform(cfg, True),
+                             num_workers=2).epoch(0))[:n]
+
+
+def _tensor_rel(got, want):
+    """Per tensor max |Δ| over max |want|, the worst of them."""
+    return max(float((got[n].float().cpu() - w.float().cpu()).abs().max())
+               / max(float(w.abs().max()), 1e-30) for n, w in want.items())
+
+
+def dp_training(torch, ops, card) -> dict:
+    """Phase 7a: two ranks on the one card over gloo, a global batch of
+    two (one item each), phase 5a's width, two steps (the second timed);
+    then one NCCL step at world size 1.  A rank that fails to launch or
+    join raises (``parallel.launch``)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rvos_tpu_torch.cli.profile_train import train_config
+    from rvos_tpu_torch.engine.dp_check import (batch_slice,
+                                                data_parallel_steps,
+                                                per_item_steps)
+    from rvos_tpu_torch.engine.grad_check import (UPDATE_TOL, floors,
+                                                  gradient_failures,
+                                                  perturbed_state)
+    from rvos_tpu_torch.engine.train import Trainer, batch_to_device
+    from rvos_tpu_torch.models import AOCNet
+    from rvos_tpu_torch.ops import prng
+    from rvos_tpu_torch.parallel.launch import launch
+    from rvos_tpu_torch.weights import init_random_
+
+    with tempfile.TemporaryDirectory() as root:
+        # parity precision (float32 matching, TF32 off in every process,
+        # as phase 5b runs): the comparisons below have power only
+        # without TF32's rounding, which batch-1 and batch-2 convolutions
+        # take apart
+        cfg = train_config(2, 2, root, DATA_MAX_OBJ_NUM=5,
+                           MATCHING_DTYPE="float32",
+                           EVAL_COMPUTE_DTYPE="float32")
+        batches = _global_batches(cfg, 2)
+        t0 = time.time()
+        ranks = launch(data_parallel_steps, 2, "gloo", ["cuda:0"] * 2,
+                       (cfg, None, batches, 0, 1), timeout=900)
+        ranks_s = time.time() - t0
+        for fn in _kernel_counters(ops).values():
+            fn.launches = 0
+        # the weights every rank makes from seed 0, made once here
+        init = init_random_(AOCNet(cfg), torch.Generator().manual_seed(0)
+                            ).state_dict()
+        ref = per_item_steps(cfg, init, batches[:1], 0, "cuda")
+        # the single process at batch 2, and its ten-ulp floor
+        tr = Trainer(cfg, device="cuda", init_state=init, seed=0)
+        key = prng.next_step_key(tr.run_key)[1].cuda()
+        seeds = tr.draw_seeds()
+        batch = batch_to_device(batches[0], tr.device)
+        state = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        names = [n for n, _ in tr.model.named_parameters()]
+
+        def grads_at(st):
+            tr.model.load_state_dict(st)
+            tr.optimizer.zero_grad()
+            loss, _ = tr._step_fn.loss_fn(batch, 0, key, seeds)
+            loss.backward()
+            grads = {n: (p.grad if p.grad is not None
+                         else torch.zeros_like(p)).detach().cpu()
+                     for n, p in tr.model.named_parameters()}
+            return float(loss.detach()), grads
+
+        b2_loss, b2 = grads_at(state)
+        runs = [grads_at(perturbed_state(state, names, s))[1]
+                for s in range(3)]
+        floor = floors(b2, runs)
+        norm = sum(float(g.square().sum()) for g in b2.values()) ** 0.5
+        spread = max(sum(float((r[n] - g).square().sum())
+                         for n, g in b2.items()) ** 0.5 / norm for r in runs)
+        # the optimizer's update of rank 0's reduced gradient, here
+        tr.model.load_state_dict(state)
+        for n, p in tr.model.named_parameters():
+            p.grad = ranks[0]["steps"][0]["grads"][n].to(p.device)
+        tr.optimizer.step()
+        updated = {n: p.detach().cpu()
+                   for n, p in tr.model.named_parameters()}
+        del tr, batch, state
+        parent_launches = {k: fn.launches
+                           for k, fn in _kernel_counters(ops).items()}
+        # NCCL at world size 1, in this process: item 0 alone, against
+        # the plain step (no group)
+        one = [batch_slice(batches[0], 0, 1)]
+        cuda = torch.device("cuda", 0)
+        t0 = time.time()
+        store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                              wait_for_workers=False)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            nccl = data_parallel_steps(0, 1, cuda, cfg, init, one)
+        finally:
+            dist.destroy_process_group()
+        nccl_s = time.time() - t0
+        plain = data_parallel_steps(0, 1, cuda, cfg, init, one)
+    s0, s1 = (r["steps"][0] for r in ranks)
+    reduced_exact = all(
+        torch.equal(s0["grads"][n], (s0["local_grads"][n]
+                                     + s1["local_grads"][n]) / 2)
+        and torch.equal(s1["grads"][n], s0["grads"][n]) for n in s0["grads"])
+    params_equal = all(torch.equal(s0["params"][n], s1["params"][n])
+                       for n in s0["params"])
+    want = ref["steps"][0]
+    loss_rel = abs(float(s0["loss"]) - float(want["loss"])) / abs(
+        float(want["loss"]))
+    bitwise = sum(torch.equal(s0["grads"][n], want["grads"][n].cpu())
+                  for n in want["grads"])
+    bad_i, sum_i = gradient_failures(
+        s0["grads"], {n: g.cpu() for n, g in want["grads"].items()}, floor,
+        1e-3)
+    param_rel = _tensor_rel(s0["params"], {n: p.cpu() for n, p in
+                                           ref["params"].items()})
+    update_rel = _tensor_rel(s0["params"], updated)
+    b2_rel = abs(float(s0["loss"]) - b2_loss) / abs(b2_loss)
+    bad_b2, sum_b2 = gradient_failures(s0["grads"], b2, floor, 1e-3)
+    n0, p0 = nccl["steps"][0], plain["steps"][0]
+    nccl_identity = all(torch.equal(n0["grads"][n], n0["local_grads"][n])
+                        for n in n0["grads"])
+    nccl_loss_rel = abs(float(n0["loss"]) - float(p0["loss"])) / abs(
+        float(p0["loss"]))
+    out = dict(
+        reduce_exact=reduced_exact, ranks_params_equal=params_equal,
+        per_item=dict(loss_rel=loss_rel, bitwise_tensors=int(bitwise),
+                      **sum_i,
+                      params_worst_rel=param_rel),
+        batch2=dict(loss_rel=b2_rel, **sum_b2, floor_l2_rel=spread),
+        update_worst_rel=update_rel,
+        rank_ms=[r["steps"][1]["step_ms"] for r in ranks],
+        reduce_ms=[r["steps"][1]["reduce_ms"] for r in ranks],
+        reduce_bytes=s0["reduce_bytes"],
+        peak_gb=[r["peak_gb"] for r in ranks],
+        launches=[r["launches"] for r in ranks] + [parent_launches],
+        nccl=dict(identity=nccl_identity, loss_rel=nccl_loss_rel,
+                  loss_bitwise=torch.equal(n0["loss"].cpu(),
+                                           p0["loss"].cpu()),
+                  grads_worst_rel=_tensor_rel(n0["grads"], {
+                      n: g.cpu() for n, g in p0["local_grads"].items()}),
+                  reduce_bytes=n0["reduce_bytes"], step_ms=n0["step_ms"],
+                  plain_step_ms=p0["step_ms"], run_s=nccl_s),
+        launch_s=ranks_s)
+    if (not reduced_exact or not params_equal or loss_rel > 1e-4 or bad_i
+            or sum_i["all_l2_rel"] > 2e-2 or update_rel > UPDATE_TOL
+            or b2_rel > 1e-4 or bad_b2
+            or sum_b2["all_l2_rel"] > max(2e-2, 3 * spread)
+            or any(any(v.values()) for v in out["launches"])
+            or not nccl_identity or nccl_loss_rel > 1e-5
+            or not n0["reduce_bytes"]):
+        raise AssertionError(f"phase 7a: {out} per-item {bad_i[:8]} "
+                             f"batch-2 {bad_b2[:8]}")
+    return out
+
+
+def cp_eval(torch, ops, cfg, model, seq, window) -> dict:
+    """Phase 7b: context-parallel eval, ``MESH_MODEL_AXIS=2`` over
+    ``[cuda:0] * 2``, the graph path timed and profiled (B.3 once per row
+    shard a frame, B.1 never), then frame by frame in lock-step with the
+    unsharded evaluator on the card (B.1), in float32 compute: in bf16
+    compute the two routes' maps round apart and the bf16 decoder parts
+    them far (PERF.md §6), so no gate has power there."""
+    from rvos_tpu_torch.engine import Evaluator
+    from rvos_tpu_torch.engine.lockstep import gate_failures, lockstep_masks
+    from rvos_tpu_torch.models import AOCNet
+
+    devs = [torch.device("cuda", 0)] * 2
+    ccfg = cfg.replace(MESH_MODEL_AXIS=2)
+
+    def make(c):
+        def fn():
+            m = AOCNet(c)
+            m.load_state_dict(model.state_dict())
+            return m
+        return fn
+
+    ev = Evaluator(ccfg, make(ccfg)(), device="cuda", devices=devs)
+    if ev.cp_devices != devs or ev.ens_devices is not None:
+        raise AssertionError(f"context parallelism not resolved: "
+                             f"{ev.cp_devices}")
+    r = run_video(torch, ops, ev, seq, "global_flat_min", window)
+    per = r["per_frame"]
+    if (per.get("global_flat_min") != [2] * (len(seq) - 1)
+            or per.get("global_seg_map")):
+        raise AssertionError(f"7b: B.3 not twice a frame or B.1 run: {per}")
+    del ev
+    locks = {}
+    t0 = time.time()
+    for name, kw in (("float32", dict(EVAL_COMPUTE_DTYPE="float32")),):
+        lcfg = ccfg.replace(TEST_FRAME_CHUNK=1, **kw)
+        lock = lockstep_masks(lcfg, make(lcfg), seq, None, device="cuda",
+                              ref_device="cuda", devices=devs)
+        locks[name] = dict(lockstep=min(lock.agree), dlogit=lock.max_dlogit,
+                           demb=lock.max_demb, unexplained=lock.unexplained,
+                           masks_parted=lock.masks_parted,
+                           banks=all(lock.banks_equal), frames=len(lock.agree),
+                           gate_failures=gate_failures(lock))
+    f32 = locks["float32"]
+    if (f32["gate_failures"] or not f32["banks"]
+            or f32["frames"] != len(seq) - 1):
+        raise AssertionError(f"7b lock-step against the unsharded "
+                             f"evaluator: {locks}")
+    r["locks"] = locks
+    r["lock_s"] = time.time() - t0
+    return r
+
+
+def cp_kernels(torch, ops, shapes) -> dict:
+    """Phase 7b at phase 2's shapes: B.3 on query-row shards and on bank
+    shards (n = 2, 3) against one launch, bit for bit after the squash,
+    over the occupancy bank the context-parallel path matches against
+    and the full bank of no cap; mixed and float32.  Times the two-shard
+    row split on the occupancy bank beside one B.3 launch and B.1."""
+    from rvos_tpu_torch.ops.matching import compact_reference_bank_occupancy
+    from rvos_tpu_torch.parallel import (global_matching_bank_sharded,
+                                         global_matching_context_parallel)
+    h4, w4 = 121, 213
+    emb, lab, q = _bank(torch, shapes, 4)
+    occ_r, occ_l, tile_obj = compact_reference_bank_occupancy(
+        emb, lab, shapes["p"])
+    qe = q.reshape(h4, w4, shapes["c"])
+    bias = torch.zeros(shapes["o"], device="cuda")
+    dev = torch.device("cuda", 0)
+    out = {}
+    for bank, (rr, ll) in (("occupancy", (occ_r, occ_l)),
+                           ("cap0", (emb, lab))):
+        for mixed in (False, True):
+            want = ops.global_matching_flat(qe, rr, ll, bias, mixed=mixed)
+            for n in (2, 3):
+                for kind, fn in (("rows", global_matching_context_parallel),
+                                 ("bank", global_matching_bank_sharded)):
+                    n0 = ops.global_flat_min.launches
+                    got = fn(qe, rr, ll, bias, [dev] * n, mixed=mixed)
+                    torch.cuda.synchronize()
+                    key = f"{bank}/{'mixed' if mixed else 'f32'}/{kind}{n}"
+                    out[key] = bool(torch.equal(got, want))
+                    if (not out[key]
+                            or ops.global_flat_min.launches != n0 + n):
+                        raise AssertionError(f"7b {key}: not equal to one "
+                                             f"B.3 launch, or not {n} "
+                                             f"launches")
+    mixed = True
+    out["ms_rows2"] = _time_ms(lambda: global_matching_context_parallel(
+        qe, occ_r, occ_l, bias, [dev] * 2, mixed=mixed), 10)
+    out["ms_b3"] = _time_ms(lambda: ops.global_matching_flat(
+        qe, occ_r, occ_l, bias, mixed=mixed), 10)
+    out["ms_b1"] = _time_ms(lambda: ops.global_matching_flat_segmented(
+        qe, occ_r, occ_l, bias, tile_obj, mixed=mixed), 10)
+    return out
+
+
+# frames of phase 7c's profiled run (eager, six variants a frame: the
+# profiler's record of the whole video took longer than the video), and
+# of its lock-step runs (the first 8 of 16: frame by frame against the
+# one-device ensemble, the variant-per-device run took 66 s for all 16)
+PROFILED_FRAMES = 6
+LOCK_FRAMES = 8
+
+
+def sharded_ensemble(torch, ops, card, mcfg, model, mseq, mwindow) -> dict:
+    """Phase 7c: the ensemble sharded over ``[cuda:0] * 2`` (a scale
+    group per device) and ``[cuda:0] * 6`` (a variant per device), each
+    timed and profiled (B.1 and B.4 six times a frame on the first
+    ``PROFILED_FRAMES`` frames), then, on the first ``LOCK_FRAMES``
+    frames, in lock-step with the one-device ensemble from copies of the same states, the
+    reference embedding its own frames (where a flip twin embeds alone on
+    its device, the one-device step batches it with its scale), through
+    the gate: a group per device as run (the same features on both
+    sides: only the order of the partitions' sums parts them), a variant
+    per device in parity precision (float32 matching and compute: as run,
+    the twins' embeddings rounding apart reach the bf16 matching operands,
+    ROADMAP C.10, and the bf16 decoder, so no gate has power there)."""
+    from rvos_tpu_torch.engine import Evaluator
+    from rvos_tpu_torch.engine.lockstep import gate_failures, lockstep_chunks
+    from rvos_tpu_torch.models import AOCNet
+
+    def make(c):
+        def fn():
+            m = AOCNet(c)
+            m.load_state_dict(model.state_dict())
+            return m
+        return fn
+
+    out = {}
+    for n in (2, 6):
+        devs = [torch.device("cuda", 0)] * n
+        ev = Evaluator(mcfg, make(mcfg)(), device="cuda", devices=devs)
+        parts = ev._ens_partitions()
+        if ev.ens_devices != devs or len(parts) != (3 if n == 2 else 6):
+            raise AssertionError(f"7c: partitions {parts}")
+        r = run_video(torch, ops, ev, mseq, "global_seg_map", mwindow,
+                      profile_frames=PROFILED_FRAMES)
+        per = r["per_frame"]
+        for k in ("global_seg_map", "local_match"):
+            if per.get(k) != [6] * (PROFILED_FRAMES - 1):
+                raise AssertionError(f"7c [{n}]: {k} per frame {per}")
+        del ev
+        locks = {}
+        t0 = time.time()
+        parity = dict(EVAL_COMPUTE_DTYPE="float32", MATCHING_DTYPE="float32")
+        for name, kw in ((("as_run", {}),) if n == 2
+                         else (("parity", parity),)):
+            lcfg = mcfg.replace(**kw)
+            lock = lockstep_chunks(lcfg, make(lcfg), _Head(mseq, LOCK_FRAMES),
+                                   None, device="cuda", ref_device="cuda",
+                                   share_masks=True, devices=devs,
+                                   own_features=True)
+            locks[name] = dict(lockstep=min(lock.agree),
+                               dlogit=lock.max_dlogit,
+                               unexplained=lock.unexplained,
+                               masks_parted=lock.masks_parted,
+                               frames=len(lock.agree),
+                               gate_failures=gate_failures(lock))
+        gated = next(iter(locks.values()))
+        if gated["gate_failures"] or gated["frames"] != LOCK_FRAMES - 1:
+            raise AssertionError(f"7c [{n}] lock-step against the "
+                                 f"one-device ensemble: {locks}")
+        r["locks"] = locks
+        r["partitions"] = [list(m) for m, _, _ in parts]
+        print(f"phase 7c sharded ensemble over [cuda:0] * {n} (partitions "
+              f"{r['partitions']}) resnet101_aocnet 481x849 16 frames, "
+              f"frame by frame: {_video_line(r)}; lock-step against the "
+              f"one-device ensemble, frames 1-{LOCK_FRAMES - 1} {locks} "
+              f"({time.time() - t0:.1f} s) "
+              f"[{card}]", flush=True)
+        out[n] = r
+    return out
+
+
+def phase7(torch, ops, card, base=None) -> dict:
+    """Phase 7: several GPUs, driven on the one card (7a data-parallel
+    training, 7b context-parallel eval and B.3's shards, 7c the sharded
+    ensemble).  ``base``: phase 3's weights and its and 3c's runs of the
+    full script; without them (``--only 7``) they are made here."""
+    from rvos_tpu_torch.cli.profile_eval import video_steps
+    from rvos_tpu_torch.configs import get_config
+    from rvos_tpu_torch.data import SyntheticEval
+    from rvos_tpu_torch.engine import Evaluator
+    from rvos_tpu_torch.models import AOCNet
+    from rvos_tpu_torch.weights import init_random_
+
+    t_all = time.time()
+    t0 = time.time()
+    a = dp_training(torch, ops, card)
+    print(f"phase 7a data-parallel training resnet101_aocnet 465x465 T=5 O=6 "
+          f"remat float32 (TF32 off), global batch 2 on two gloo ranks "
+          f"sharing one card (one "
+          f"item each; two ranks on one card: not a data-parallel speed): "
+          f"ms/step per rank {[round(v, 1) for v in a['rank_ms']]}, reduce "
+          f"ms {[round(v, 1) for v in a['reduce_ms']]} of "
+          f"{a['reduce_bytes']} bytes per step, peak GB per rank "
+          f"{[round(v, 3) for v in a['peak_gb']]}, kernel counters (ranks, "
+          f"then this process) {a['launches']}; reduce exact (the mean of "
+          f"the ranks' gradients bit for bit) {a['reduce_exact']}, ranks' "
+          f"parameters equal {a['ranks_params_equal']}; against the "
+          f"per-item average (the card's backward is not run to run "
+          f"deterministic, so the grad_check floor holds it) {a['per_item']}"
+          f"; parameters against the optimizer's update of the reduced "
+          f"gradient (worst rel) {a['update_worst_rel']:.3e}; against "
+          f"batch 2 in one process {a['batch2']}; NCCL at world "
+          f"size 1 {a['nccl']}; rank launch {a['launch_s']:.1f} s; took "
+          f"{time.time() - t0:.1f} s [{card}]", flush=True)
+
+    cfg = get_config("resnet101_aocnet")
+    seq = SyntheticEval(size=(481, 849), n_seqs=1, n_frames=22, obj_num=3)[0]
+    mcfg = cfg.replace(TEST_MULTISCALE=(1.0, 1.15, 1.3), TEST_FLIP=True,
+                       TEST_MAX_SIZE=800.0)
+    mseq = SyntheticEval(size=(481, 849), n_seqs=1, n_frames=16,
+                         obj_num=3)[0]
+    if base is None:
+        model = init_random_(AOCNet(cfg), torch.Generator().manual_seed(0))
+        ev = Evaluator(cfg, model, device="cuda")
+        steps = [s for s in video_steps(ev, len(seq)) if len(s) == ev.chunk_n]
+        window = (steps[1][0], steps[-1][-1])
+        main = run_video(torch, ops, ev, seq, "global_seg_map", window)
+        del ev
+        mmodel = AOCNet(mcfg)
+        mmodel.load_state_dict(model.state_dict())
+        mev = Evaluator(mcfg, mmodel, device="cuda")
+        msteps = [s for s in video_steps(mev, len(mseq))
+                  if len(s) == mev.chunk_n]
+        mwindow = (msteps[1][0], msteps[-1][-1])
+        mf = run_video(torch, ops, mev, mseq, "global_seg_map", mwindow)
+        del mev, mmodel
+    else:
+        model, main, window, mf, mwindow = base
+    t0 = time.time()
+    b = cp_eval(torch, ops, cfg, model, seq, window)
+    shapes = dict(m=121 * 213, c=cfg.MODEL_SEMANTIC_EMBEDDING_DIM,
+                  o=cfg.MODEL_MAX_OBJ_NUM, slots=cfg.TEST_BANK_CAPACITY,
+                  p=cfg.MATCHING_MAX_REF_PIXELS)
+    bk = cp_kernels(torch, ops, shapes)
+    print(f"phase 7b context-parallel eval MESH_MODEL_AXIS=2 over [cuda:0, "
+          f"cuda:0] resnet101_aocnet 481x849 22 frames occupancy bank "
+          f"mixed, graph path: {_video_line(b)} | unsharded (phase 3): "
+          f"steady_ms_per_frame={main['steady_ms']:.2f} (median "
+          f"{main['median_ms']:.2f}); lock-step against the unsharded "
+          f"evaluator (float32 compute, through the gate) {b['locks']} "
+          f"({b['lock_s']:.1f} s); "
+          f"B.3 shards at phase 2's shapes (equal "
+          f"to one launch) {bk}; took {time.time() - t0:.1f} s [{card}]",
+          flush=True)
+    t0 = time.time()
+    c = sharded_ensemble(torch, ops, card, mcfg, model, mseq, mwindow)
+    print(f"phase 7c frame ms, one device (phase 3c, graph chunks): "
+          f"steady_ms_per_frame={mf['steady_ms']:.2f} (median "
+          f"{mf['median_ms']:.2f}); sharded over [cuda:0] * n, frame by "
+          f"frame: " + ", ".join(f"n={n} {r['steady_ms']:.2f} (median "
+                                 f"{r['median_ms']:.2f})"
+                                 for n, r in c.items())
+          + f"; phase 7c took {time.time() - t0:.1f} s; phase 7 took "
+          f"{time.time() - t_all:.1f} s [{card}]", flush=True)
+    return dict(a=a, b=b, bk=bk, c=c)
+
+
 def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser(description="smoke run of the port on a GPU")
-    p.add_argument("--only", choices=["5", "6"], default=None,
-                   help="run phase 5 (training) or phase 6 (bf16 training, "
-                        "MobileNet) alone")
+    p.add_argument("--only", choices=["5", "6", "7"], default=None,
+                   help="run phase 5 (training), phase 6 (bf16 training, "
+                        "MobileNet) or phase 7 (several GPUs) alone")
     args = p.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1025,7 +1512,7 @@ def main(argv=None) -> int:
     # ---- phase 1: the card and the build
     card = _card()
     if args.only:
-        (phase5 if args.only == "5" else phase6)(torch, ops, card)
+        {"5": phase5, "6": phase6, "7": phase7}[args.only](torch, ops, card)
         print(card)
         print(json.dumps({f"phase{args.only}_only": True}))
         return 0
@@ -1123,8 +1610,10 @@ def main(argv=None) -> int:
           f"{agree} took {time.time() - t0:.1f} s [{card}]", flush=True)
     del pev, pmodel
 
-    # ---- phase 3b: the other bank layouts, graph path, counters from 0
+    # ---- phase 3b: the other bank layouts, graph path, counters from 0,
+    # on the video's first 12 frames (one steady chunk)
     layout_launches = {}
+    bseq = _Head(seq, 12)
     for name, kw in BANK_LAYOUTS.items():
         if not kw:
             continue
@@ -1133,10 +1622,14 @@ def main(argv=None) -> int:
         lmodel = AOCNet(lcfg)
         lmodel.load_state_dict(model.state_dict())
         lev = Evaluator(lcfg, lmodel, device="cuda")
-        r = run_video(torch, ops, lev, seq, GLOBAL_KERNEL[name], window)
+        bsteps = [s for s in video_steps(lev, len(bseq))
+                  if len(s) == lev.chunk_n]
+        bwindow = (bsteps[1][0], bsteps[-1][-1])
+        r = run_video(torch, ops, lev, bseq, GLOBAL_KERNEL[name], bwindow)
         layout_launches[name] = r["launches"]
         print(f"phase 3b layout {name} ({kw}) resnet101_aocnet "
-              f"{frame_hw[0]}x{frame_hw[1]} 22 frames, graph path: "
+              f"{frame_hw[0]}x{frame_hw[1]} {len(bseq)} frames, graph path, "
+              f"steady frames {bwindow[0]}-{bwindow[1]}: "
               f"{_video_line(r)} took {time.time() - t0:.1f} s [{card}]",
               flush=True)
         del lev, lmodel
@@ -1172,8 +1665,24 @@ def main(argv=None) -> int:
             TEST_FLIP=True, TEST_MULTISCALE=(1.0, 1.3), TEST_FRAME_CHUNK=chunk,
             MEM_EVERY=3 if chunk > 1 else 2)
 
+    seeded_models = {}
+
     def seeded(c):
-        return lambda: init_random_(AOCNet(c), torch.Generator().manual_seed(0))
+        """Seed 0's weights under ``c``: built once for each model shape
+        (the ``MODEL_`` fields decide it), then a copy that carries ``c``
+        (building and seeding a full-width model took about a second, and
+        these checks make about sixty)."""
+        key = repr(sorted((k, v) for k, v in vars(c).items()
+                          if k.startswith("MODEL_")))
+
+        def make():
+            if key not in seeded_models:
+                seeded_models[key] = init_random_(
+                    AOCNet(c), torch.Generator().manual_seed(0))
+            m = copy.deepcopy(seeded_models[key])
+            m.cfg = c
+            return m
+        return make
 
     def make_seq(n=6):
         return SyntheticEval(size=(65, 65), n_seqs=1, n_frames=n)[0]
@@ -1263,8 +1772,10 @@ def main(argv=None) -> int:
           f"gated): "
           f"{chunked}, took {time.time() - t0:.1f} s", flush=True)
 
+    seeded_models.clear()
     f32_train = phase5(torch, ops, card)
     mobile = phase6(torch, ops, card, f32_train)
+    multi = phase7(torch, ops, card, (model, main, window, mf, mwindow))
 
     kernels = []
     for key, name, src, rep, n in (
@@ -1306,7 +1817,21 @@ def main(argv=None) -> int:
                 "ensemble_f32_plain_ms": rmp["plain_ms"],
                 "ensemble_f32_bound_ms": rmp["bound_ms"],
                 "ensemble_f32_library_ms": rmp["library_ms"]})
+        if key in ("global", "local"):
+            entry["sharded_ensemble_launches"] = {
+                n: r7["launches"][name] for n, r7 in multi["c"].items()}
+            entry["sharded_ensemble_per_frame"] = {
+                n: r7["per_frame"][PROFILED_GLOBAL.get(name, name)]
+                for n, r7 in multi["c"].items()}
         if key == "flat":
+            entry.update({
+                "cp_row_shard_launches":
+                    multi["b"]["launches"]["global_flat_min"],
+                "cp_row_shard_per_frame":
+                    multi["b"]["per_frame"]["global_flat_min"],
+                "cp_row_shards_ms": multi["bk"]["ms_rows2"],
+                "cp_one_launch_ms": multi["bk"]["ms_b3"],
+                "cp_unsharded_b1_ms": multi["bk"]["ms_b1"]})
             rf, rfp = res[("flat_fg", True)], res[("flat_fg", False)]
             entry.update({
                 "fg_union_launches":

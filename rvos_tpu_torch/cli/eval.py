@@ -21,7 +21,13 @@ Robust-VOS perturbation to every frame (random draws from ``--seed``);
 ``--jf`` scores the written masks against the annotations (DAVIS J&F,
 with the per-sequence and global CSVs).  The masks are zipped for the
 benchmark servers.  ``--shard_id/--shard_num`` evaluate a round-robin
-share of the sequences.  ``--flip`` and ``--ms`` run the multi-scale +
+share of the sequences; under ``RVOS_MULTIHOST=1`` each process joins
+the run (``parallel.distributed.maybe_initialize``) and, when they are
+left at their defaults, takes its rank and the world size as them, on
+its own cards (``RVOS_LOCAL_DEVICE_IDS``, else card ``rank % count``).
+On a host with several cards the ensemble shards its variants over them
+(``TEST_ENSEMBLE_SHARD``), and ``MESH_MODEL_AXIS > 1`` splits the
+matching rows over that many cards.  ``--flip`` and ``--ms`` run the multi-scale +
 flip ensemble (``--ms 1.0 1.15 1.3 --flip`` is the reference's MF
 setting; the long edge is then capped at 800 before scaling).
 """
@@ -193,6 +199,15 @@ def main(argv=None):
     from ..utils.eval_zip import zip_folder
     from ..weights import init_random_, load_reference_checkpoint
 
+    from ..parallel import distributed
+    device, devices = args.device, None
+    if distributed.maybe_initialize(device=args.device):
+        devices = distributed.process_devices(device=args.device)
+        device = devices[0]
+        if args.shard_num == 1:
+            args.shard_id = distributed.rank()
+            args.shard_num = distributed.world_size()
+
     cfg = apply_args(get_config(args.config), args)
     if args.synthetic:
         cfg = cfg.replace(MODEL_MAX_OBJ_NUM=4, TEST_BANK_CAPACITY=3)
@@ -217,7 +232,7 @@ def main(argv=None):
         dataset = _ShardView(dataset, args.shard_id, args.shard_num)
         print(f"Shard {args.shard_id}/{args.shard_num}: "
               f"{len(dataset)} sequences")
-    ev = Evaluator(cfg, model, device=args.device)
+    ev = Evaluator(cfg, model, device=device, devices=devices)
     summary = ev.evaluating(dataset, save_root=out_root)
     print(f"Total FPS: {summary['total_fps']:.2f} ({ev.device})")
     zip_folder(out_root, out_root.rstrip("/") + ".zip")

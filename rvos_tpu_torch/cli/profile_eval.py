@@ -76,6 +76,27 @@ def _instrument(ev, log):
 FILLER = "spin_kernel"
 
 
+def device_records(prof) -> list:
+    """The device's records of a stopped ``torch.profiler`` run →
+    ``(name, start_ns, duration_us)`` in start order, the filler's
+    included.  Read straight from the kineto result: the profiler's own
+    operator tree (``events()``, ``key_averages()``) took tens of
+    seconds of host time on a training step's records."""
+    from torch._C import _demangle
+    from torch.autograd import DeviceType
+    names = {}
+    rows = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        raw = e.name()
+        if raw not in names:
+            names[raw] = _demangle(raw)
+        rows.append((names[raw], e.start_ns(), e.duration_ns() / 1e3))
+    rows.sort(key=lambda r: r[1])
+    return rows
+
+
 def pad_profile(torch, n: int = 50_000) -> None:
     """Queue ``n`` tiny filler kernels (``torch.cuda._sleep``, named
     ``spin_kernel``) and wait for them, just before a profiler stops.

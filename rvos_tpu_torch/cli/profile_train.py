@@ -60,7 +60,7 @@ def profile_training(torch, cfg, steps: int, seed: int = 0,
     ``by_stage``: then one more step by stage (``profile_by_stage``)."""
     from ..data import SyntheticTrain, TrainBatcher
     from ..engine.train import Trainer
-    from .profile_eval import FILLER, pad_profile
+    from .profile_eval import FILLER, device_records, pad_profile
     from .train import train_transform
 
     torch.cuda.synchronize()
@@ -104,8 +104,11 @@ def profile_training(torch, cfg, steps: int, seed: int = 0,
            "peak_gb": peak, "held_gb": held / 1e9, "moved": moved}
     out["clips_s"] = cfg.TRAIN_BATCH_SIZE / out["steady_ms"] * 1e3
 
+    # the device's activity alone: every number below reads kernels, and
+    # recording the host's operations too slowed the profiled step and
+    # took tens of seconds to process
     from torch.profiler import ProfilerActivity, profile
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])
     torch.cuda.synchronize()
     prof.__enter__()
     t0 = time.time()
@@ -114,20 +117,20 @@ def profile_training(torch, cfg, steps: int, seed: int = 0,
     wall = time.time() - t0
     pad_profile(torch)
     prof.__exit__(None, None, None)
-    if not any(FILLER in e.key for e in prof.events()):
+    records = device_records(prof)
+    if not any(FILLER in name for name, _, _ in records):
         raise RuntimeError("the profiler lost the end of its record")
-
-    def on_device(e):
-        return str(e.device_type).endswith("CUDA") and FILLER not in e.key
-
-    busy = sum(e.device_time_total for e in prof.events() if on_device(e))
+    by_name = {}
+    for name, _, us in records:
+        if FILLER not in name:
+            t, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (t + us, n + 1)
+    busy = sum(t for t, _ in by_name.values())
     out.update(profiled_wall_ms=wall * 1e3, busy_ms=busy / 1e3,
                idle_share=1.0 - busy / 1e6 / wall,
-               kernels=sum(1 for e in prof.events() if on_device(e)))
-    top = sorted((e for e in prof.key_averages() if on_device(e)),
-                 key=lambda e: e.device_time_total, reverse=True)[:12]
-    out["top"] = [(e.key[:60], e.device_time_total / 1e3, e.count)
-                  for e in top]
+               kernels=sum(n for _, n in by_name.values()))
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:12]
+    out["top"] = [(name[:60], t / 1e3, n) for name, (t, n) in top]
     if by_stage:
         out["by_stage"] = profile_by_stage(torch, trainer, batcher,
                                            steps + 2)

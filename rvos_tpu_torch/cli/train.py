@@ -6,7 +6,17 @@
     python -m rvos_tpu_torch.cli.train --datasets davis2017 \
         --davis_root DAVIS --pretrained_path cfbi.pth --batch_size 2
 
-Runs on one CUDA card unless ``--device cpu``.  Results go to
+Runs on one CUDA card unless ``--device cpu``.  ``--gpu_num N`` (N > 1)
+trains data-parallel: ``min(N, visible cards)`` processes, one per card,
+spawned over a local TCP rendezvous (``parallel.launch``, NCCL), or N
+gloo processes under ``--device cpu``; with ``MESH_MODEL_AXIS = m > 1``
+and at least m cards, each process takes m cards and splits its
+matching rows over them (``min(N, cards // m)`` processes).
+``--batch_size`` is the global batch, divided evenly among them.  Under
+``RVOS_MULTIHOST=1`` the process joins a run launched outside instead
+(``parallel.distributed.maybe_initialize``: ``RVOS_COORDINATOR``,
+``RVOS_NUM_PROCESSES``, ``RVOS_PROCESS_ID``, ``RVOS_LOCAL_DEVICE_IDS``).
+Rank 0 alone prints and writes.  Results go to
 ``DIR_ROOT/result/<exp_name>`` (``workdir/`` by default): the metrics
 log and ``ckpt/save_step_<N>.pth``; a run resumes from the newest
 checkpoint there, so a finished run starts over only under a new
@@ -15,7 +25,6 @@ made from ``--seed``.  ``--float16`` trains with bfloat16 matching
 operands, as the JAX CLI (``MATCHING_DTYPE="bfloat16"``); a preset with
 ``TRAIN_COMPUTE_DTYPE="bfloat16"`` runs the forward in bf16.
 ``--global_chunks`` is accepted and does nothing, as in the JAX CLI.
-Not ported, and refused: ``--gpu_num`` above 1 (ROADMAP Queue A item 8).
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ def build_parser():
     p.add_argument("--exp_name", type=str, default="")
     p.add_argument("--config", type=str, default="resnet101_aocnet")
     p.add_argument("--gpu_num", type=int, default=-1,
-                   help="devices (only 1 is ported)")
+                   help="data-parallel processes (one per card)")
     p.add_argument("--batch_size", type=int, default=-1)
     p.add_argument("--pretrained_path", type=str, default="")
     p.add_argument("--datasets", nargs="+", type=str, default=["youtubevos"])
@@ -151,26 +160,72 @@ def build_dataset(cfg, synthetic: bool):
     return _Concat(parts)
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    if args.gpu_num > 1:
-        raise NotImplementedError(
-            f"--gpu_num {args.gpu_num}: multi-GPU training is ROADMAP "
-            "Queue A item 8")
-
+def train(args, device, devices=None) -> None:
+    """One process's run: the trainer on ``device`` (context-parallel
+    over ``devices``), its slices of the global batches."""
     from ..configs import get_config
     from ..data.loader import TrainBatcher
     from ..engine.train import Trainer
+    from ..parallel import distributed
 
     cfg = apply_args(get_config(args.config), args)
-    trainer = Trainer(cfg, device=args.device, seed=args.seed)
+    trainer = Trainer(cfg, device=device, seed=args.seed, devices=devices)
     batcher = TrainBatcher(build_dataset(cfg, args.synthetic),
                            cfg.TRAIN_BATCH_SIZE,
                            train_transform(cfg, args.synthetic),
-                           num_workers=cfg.DATA_WORKERS)
+                           num_workers=cfg.DATA_WORKERS,
+                           process_index=distributed.rank(),
+                           process_count=distributed.world_size())
     trainer.fit(batcher, log_every=cfg.TRAIN_LOG_STEP,
                 save_every=cfg.TRAIN_SAVE_STEP,
                 ckpt_dir=cfg.result_dirs()["ckpt"])
+
+
+def _rank_main(rank: int, world: int, device, argv, rows) -> None:
+    """A spawned rank of ``--gpu_num``."""
+    train(build_parser().parse_args(argv), device, rows[rank])
+
+
+def process_rows(cfg, gpu_num: int, device: str):
+    """The devices of each process of a ``--gpu_num`` run: one card each,
+    or ``MESH_MODEL_AXIS`` cards each when there are that many."""
+    import torch
+
+    from ..parallel.mesh import cp_mesh, local_devices
+    if torch.device(device).type == "cpu":
+        return [["cpu"]] * gpu_num
+    cards = local_devices(device)
+    mesh = cp_mesh(cfg.replace(MESH_DATA_AXIS=gpu_num), cards)
+    if mesh is None:
+        mesh = [[d] for d in cards[:gpu_num]]
+    return [[str(d) for d in row] for row in mesh]
+
+
+def main(argv=None):
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+
+    from ..configs import get_config
+    from ..parallel import distributed
+    from ..parallel.launch import launch
+
+    if distributed.maybe_initialize(device=args.device):
+        devices = distributed.process_devices(device=args.device)
+        train(args, devices[0], devices)
+        return
+    if args.gpu_num > 1:
+        from ..device import resolve_device
+        resolve_device(args.device)
+        cfg = apply_args(get_config(args.config), args)
+        rows = process_rows(cfg, args.gpu_num, args.device)
+        cpu = rows[0][0] == "cpu"
+        launch(_rank_main, len(rows), "gloo" if cpu else "nccl",
+               [row[0] for row in rows], args=(argv, rows),
+               timeout=None, threads=2 if cpu else 8)
+        return
+    train(args, args.device)
 
 
 if __name__ == "__main__":

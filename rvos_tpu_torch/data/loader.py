@@ -125,32 +125,53 @@ class _TransformedView:
 class TrainBatcher:
     """Fixed-shape numpy train batches, an epoch at a time: the items in
     ``default_rng(epoch).permutation`` order, the last partial batch
-    dropped (the JAX package's order at one process)."""
+    dropped (the JAX package's order).
+
+    ``batch_size`` is the global batch.  In a data-parallel run each
+    process passes its ``process_index``/``process_count``
+    (``parallel.distributed``): every process draws the same permutation
+    and loads only its contiguous ``batch_size / process_count`` slice of
+    every global batch, as ``rvos_tpu/data/loader.py:137-168`` (the
+    reference's ``DistributedSampler``)."""
 
     def __init__(self, dataset, batch_size: int, transform: Callable,
-                 seed: int = 0, num_workers: int = 2):
+                 seed: int = 0, num_workers: int = 2,
+                 process_index: int = 0, process_count: int = 1):
+        if batch_size % max(1, process_count):
+            raise ValueError(f"global batch {batch_size} not divisible "
+                             f"by {process_count} processes")
         self.dataset = dataset
         self.batch_size = batch_size
         self.transform = transform
         self.seed = seed
         self.num_workers = num_workers
+        self.process_index = process_index
+        self.process_count = max(1, process_count)
 
     def epoch(self, epoch_idx: int, start: int = 0
               ) -> Iterator[Dict[str, np.ndarray]]:
-        """The batches of epoch ``epoch_idx`` from its ``start``-th on
-        (the ones before are not read)."""
+        """This process's slices of the global batches of epoch
+        ``epoch_idx`` from its ``start``-th on (the ones before are not
+        read)."""
         order = np.random.default_rng(epoch_idx).permutation(len(self.dataset))
-        order = order[start * self.batch_size:]
+        local = self.batch_size // self.process_count
+        n_batches = len(order) // self.batch_size
+        off = self.process_index * local
+        order = np.asarray(
+            [i for g in range(start, n_batches)
+             for i in order[g * self.batch_size + off:
+                            g * self.batch_size + off + local]],
+            dtype=order.dtype)
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(epoch_idx)
         view = _TransformedView(self.dataset, self.transform, epoch_idx,
                                 self.seed)
         loader = PrefetchLoader(view, order, num_workers=self.num_workers,
-                                prefetch=2 * self.batch_size)
+                                prefetch=2 * local)
         buf = []
         for sample in loader:
             buf.append(sample)
-            if len(buf) == self.batch_size:
+            if len(buf) == local:
                 yield self.collate(buf)
                 buf = []
 

@@ -26,12 +26,16 @@ from .configs import Config
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``None`` means the first CUDA card; raises when there is none."""
+    """``None`` means the current CUDA card; raises when there is none.
+    A card comes back with its index (``cuda`` → ``cuda:0``), so that it
+    compares equal to its tensors' device."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is visible; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -61,13 +61,35 @@ The k-means init scores are the JAX evaluator's own draws
 the objects, uniform in [0.5, 1)), drawn on the evaluator's device
 outside the graph, a block of frames at a time; every variant of a frame
 reads the same draws, a prefix as long as its bank.  ``kmeans_scores``
-replaces them (tests).  The JAX package's ensemble sharded over devices
-(``TEST_ENSEMBLE_SHARD``) is not ported: here the ensemble runs on one
-device, which is the JAX package's path on one device as well.
+replaces them (tests).
+
+Several devices (``devices``: every visible card by default, the CPU
+alone on the CPU; a list may repeat a device):
+
+* the sharded ensemble (``TEST_ENSEMBLE_SHARD``, more than one device,
+  no context parallelism, more than one variant): the variants are
+  partitioned over the devices (``_ens_partitions``: one variant per
+  device when the devices suffice, else one scale group per device,
+  round-robin), each partition with a parameter replica and its
+  variants' states pinned to its device.  A frame runs partition by
+  partition — the backbone batched over the partition's variants, so a
+  flip twin alone on its device embeds its frame alone — and each
+  partition's probability sum goes to the first device, where the sums
+  are added, gated and the joint mask carried back to every partition.
+  Frame by frame: the chunked graph step sums the variants inside each
+  frame, which no split over devices keeps (the JAX package's sharded
+  path bypasses its chunks too);
+* context parallelism (``MESH_MODEL_AXIS > 1`` with at least that many
+  devices, ``parallel.mesh.resolved_cp_devices``): ``segment_frame``
+  splits the query rows of global, cluster and proxy matching over the
+  devices (the flat route, B.3 per shard, whatever the bank layout).
+  Chunks are CUDA graphs only while every shard runs on the evaluator's
+  own card; across cards they run eagerly.
 """
 
 from __future__ import annotations
 
+import copy
 import gc
 import os
 import time
@@ -85,6 +107,7 @@ from ..models import AOCNet, DecoderMemory, precompact_bank
 from ..ops.entropy import shannon_entropy
 from ..ops.prng import kmeans_init_scores
 from ..ops.resize import resize_nchw
+from ..parallel.mesh import local_devices, resolved_cp_devices
 from .eval_pipeline import Chunker, D2HBatcher, MaskSaver
 
 UNCERTAIN_LABEL = 125
@@ -332,15 +355,20 @@ class Evaluator:
         "MATCHING_MAX_REF_PIXELS", "MATCHING_SEGMENTED_BANK",
         "MATCHING_OCCUPANCY_BANK", "MATCHING_DTYPE", "MODEL_FLOAT16_MATCHING",
         "TEST_GLOBAL_ATROUS_RATE", "TEST_LOCAL_ATROUS_RATE",
-        "MODEL_MAX_OBJ_NUM", "MODEL_CLUSTER_NUM", "MODEL_KMEANS_ITERS")
+        "MODEL_MAX_OBJ_NUM", "MODEL_CLUSTER_NUM", "MODEL_KMEANS_ITERS",
+        "MESH_MODEL_AXIS")
 
     def __init__(self, cfg: Config, model: AOCNet, device=None,
-                 kmeans_scores: Optional[ScoreFn] = None):
+                 kmeans_scores: Optional[ScoreFn] = None,
+                 devices: Optional[Sequence] = None):
         """``model`` is moved to ``device`` (CUDA unless "cpu") and the
         eval compute dtype in place.  ``kmeans_scores(frame_idx, n_obj,
         n_rows)`` optionally supplies each frame's ``[O, R]`` k-means
         init scores, ``R`` the largest bank of the variants (a smaller
-        bank reads a prefix, as it does of the default draws)."""
+        bank reads a prefix, as it does of the default draws).
+        ``devices``: the devices the ensemble shards over or the matching
+        rows split over (see the module's docstring); the JAX
+        evaluator's ``jax.local_devices()``."""
         for f in self._MODEL_CFG_FIELDS:
             if getattr(model.cfg, f) != getattr(cfg, f):
                 raise ValueError(f"Evaluator cfg.{f}={getattr(cfg, f)!r} but "
@@ -354,17 +382,29 @@ class Evaluator:
         self.mem_every = cfg.MEM_EVERY
         self.unc_ratio = cfg.UNC_RATIO
         self.variants = Variants.of(cfg)
+        devs = [torch.device(d) for d in
+                (local_devices(self.device) if devices is None else devices)]
+        self.cp_devices = resolved_cp_devices(cfg, devs)
+        self.ens_devices = None
+        if (cfg.TEST_ENSEMBLE_SHARD and self.cp_devices is None
+                and len(devs) > 1 and len(self.variants.flips) > 1):
+            self.ens_devices = devs
         self.fused = cfg.TEST_FUSED_POSTPROCESS
         self.chunk_n = max(1, cfg.TEST_FRAME_CHUNK) if self.fused else 1
         if self.mem_every > 0:
             self.chunk_n = min(self.chunk_n, self.mem_every)
+        if self.ens_devices is not None:
+            self.chunk_n = 1
         self.kmeans_scores = kmeans_scores
         self._draws = _Draws(cfg.MODEL_MAX_OBJ_NUM, self.device)
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
         self._states: Dict[Tuple, _SeqState] = {}
-        self._vecs: Dict[bytes, torch.Tensor] = {}
+        self._vecs: Dict[Tuple, torch.Tensor] = {}
+        self._replicas: Dict[torch.device, AOCNet] = {}
         on_card = self.device.type == "cuda"
+        self._graphs = on_card and all(
+            d == self.device for d in self.cp_devices or ())
         self._pinned = _PinnedFrames() if on_card else None
         self._pool = torch.cuda.graph_pool_handle() if on_card else None
         self.captures = 0            # CUDA graphs captured
@@ -374,13 +414,43 @@ class Evaluator:
     def _mem_boundary(self, frame_idx: int) -> bool:
         return self.mem_every > 0 and frame_idx % self.mem_every == 0
 
-    def _dev_vec(self, arr: np.ndarray) -> torch.Tensor:
-        """``obj_valid``/``exist_mask`` on the device, uploaded once per
-        distinct value."""
-        key = arr.tobytes()
+    def _dev_vec(self, arr: np.ndarray, device=None) -> torch.Tensor:
+        """``obj_valid``/``exist_mask`` on ``device`` (the evaluator's),
+        uploaded once per distinct value."""
+        device = self.device if device is None else device
+        key = (arr.tobytes(), device)
         if key not in self._vecs:
-            self._vecs[key] = torch.from_numpy(arr.copy()).to(self.device)
+            self._vecs[key] = torch.from_numpy(arr.copy()).to(device)
         return self._vecs[key]
+
+    def _model_on(self, device) -> AOCNet:
+        """The model on ``device``: the evaluator's own, or a replica of
+        its parameters made at the first use."""
+        if device == self.device:
+            return self.model
+        if device not in self._replicas:
+            self._replicas[device] = copy.deepcopy(self.model).to(device)
+        return self._replicas[device]
+
+    def _ens_partitions(self) -> List[Tuple[Tuple[int, ...], int,
+                                            torch.device]]:
+        """The sharded ensemble's partitions, ``[(variants, scale group,
+        device)]`` in a fixed order (so frame 0 and every later frame pin
+        a variant to the same device): one variant per device when there
+        are at least as many devices as variants (a flip twin then embeds
+        its frame alone), else one scale group per device, round-robin
+        over the devices — the JAX evaluator's mapping.  Unsharded: each
+        group on the evaluator's device."""
+        groups = self.variants.groups
+        devs = self.ens_devices
+        if devs is None:
+            return [(m, g, self.device) for g, m in enumerate(groups)]
+        if len(devs) >= len(self.variants.flips):
+            parts = [((v,), g) for g, m in enumerate(groups) for v in m]
+        else:
+            parts = list((m, g) for g, m in enumerate(groups))
+        return [(mem, g, devs[p % len(devs)])
+                for p, (mem, g) in enumerate(parts)]
 
     def init_scores(self, frames: Sequence[int], n_rows: int) -> torch.Tensor:
         """The k-means init scores of consecutive ``frames`` → [K, O,
@@ -419,10 +489,21 @@ class Evaluator:
             out.append(x)
         return tuple(out)
 
-    def _embed(self, frames: torch.Tensor):
-        """uint8 [K, H, W, 3] → (embeddings [K, h, w, C], low-level)."""
-        x = (frames.float() / 255.0 - self._mean) / self._std
-        return self.model.extract_feature(x.to(self.dtype))
+    def sum_order(self) -> List[Tuple[int, ...]]:
+        """The order in which a step adds the variants' probabilities: each
+        partition's in turn (``sharded_step``), or all of them in variant
+        order (``chunk_step``)."""
+        if self.ens_devices is None:
+            return [tuple(range(len(self.variants.flips)))]
+        return [mem for mem, _, _ in self._ens_partitions()]
+
+    def _embed(self, frames: torch.Tensor, model: Optional[AOCNet] = None):
+        """uint8 [K, H, W, 3] → (embeddings [K, h, w, C], low-level), by
+        ``model`` (the evaluator's) on the frames' device."""
+        dev = frames.device
+        x = ((frames.float() / 255.0 - self._mean.to(dev))
+             / self._std.to(dev))
+        return (model or self.model).extract_feature(x.to(self.dtype))
 
     def _variant_frame(self, xs: Tuple[torch.Tensor, ...], v: int):
         """Variant ``v``'s frames from the uploaded group frames: its
@@ -442,16 +523,21 @@ class Evaluator:
         variant's resolution and orientation) open its bank."""
         xs = self._upload_groups([frames])
         lab = torch.from_numpy(gt.astype(np.int64)).to(self.device)
+        pinned = {v: dev for mem, _, dev in self._ens_partitions()
+                  for v in mem}
         states = []
         for v, flip in enumerate(self.variants.flips):
-            emb = self._embed(self._variant_frame(xs, v))[0][0]
+            dev = pinned[v]
+            emb = self._embed(self._variant_frame(xs, v).to(dev),
+                              self._model_on(dev))[0][0]
             h, w, c = emb.shape
-            st = self._states.get((v, h, w, c))
+            st = self._states.get((v, h, w, c, dev))
             if st is None:
-                st = self._states[(v, h, w, c)] = _SeqState(
-                    self.cfg, h, w, c, self.dtype, self.device)
-            st.start(emb, resize_nchw(lab.flip(1) if flip else lab, (h, w),
-                                      "nearest"))
+                st = self._states[(v, h, w, c, dev)] = _SeqState(
+                    self.cfg, h, w, c, self.dtype, dev)
+            lab_v = lab.to(dev)
+            st.start(emb, resize_nchw(lab_v.flip(1) if flip else lab_v,
+                                      (h, w), "nearest"))
             states.append(st)
         return states
 
@@ -462,7 +548,8 @@ class Evaluator:
         if st.flat_key == key:
             return
         onehot = one_hot(st.ref_lab, self.cfg.MODEL_MAX_OBJ_NUM, self.dtype)
-        onehot = onehot * self._dev_vec(ov_np).to(self.dtype)
+        onehot = onehot * self._dev_vec(ov_np, st.ref_lab.device).to(
+            self.dtype)
         flat = precompact_bank(self.cfg, st.ref_emb, onehot, st.slot_valid)
         if st.flat is None:
             st.flat = tuple(None if t is None else t.clone() for t in flat)
@@ -478,18 +565,20 @@ class Evaluator:
         st.flat_key = key
 
     def _segment(self, st: _SeqState, emb, low, prev_emb, prev_lab, ov,
-                 memory, scores, ref_onehot=None):
+                 memory, scores, ref_onehot=None, model=None):
         """One variant's ``segment_frame`` from its state → (logits
-        [O, h, w], decoder memory).  ``scores`` [O, R'] is read as a
-        prefix as long as the variant's bank."""
+        [O, h, w], decoder memory), by ``model`` (the evaluator's).
+        ``scores`` [O, R'] is read as a prefix as long as the variant's
+        bank."""
         o = self.cfg.MODEL_MAX_OBJ_NUM
         flat_emb, flat_lab, tile_obj = st.flat
         if ref_onehot is None:
             ref_onehot = one_hot(st.ref_lab, o, self.dtype)
-        return self.model.segment_frame(
+        cp = {} if self.cp_devices is None else {"cp_devices": self.cp_devices}
+        return (model or self.model).segment_frame(
             emb, low, st.ref_emb, ref_onehot, st.slot_valid, prev_emb,
             one_hot(prev_lab, o, self.dtype), ov, memory,
-            scores[:, :flat_emb.shape[0]], flat_emb, flat_lab, tile_obj)
+            scores[:, :flat_emb.shape[0]], flat_emb, flat_lab, tile_obj, **cp)
 
     def _probs(self, logits, ori_hw, v: int) -> torch.Tensor:
         """Logits → probabilities at the original size, orientation
@@ -602,12 +691,59 @@ class Evaluator:
         self.captures += 1
         return graph
 
+    def sharded_step(self, io: ChunkIO, sts: List[_SeqState], ori_hw,
+                     join: Optional[torch.Tensor] = None) -> None:
+        """``chunk_step`` of one frame with the variants partitioned over
+        ``ens_devices`` (``_ens_partitions``): each partition embeds its
+        variants' frames in one batch and sums their probabilities on its
+        device; the sums meet on the first device, in partition order,
+        for the mean, the gate and the mask; the mask goes back to each
+        partition for its variants' next labels.  The JAX evaluator's
+        ``run_ens_frame_sharded``."""
+        o_hw = tuple(ori_hw)
+        flips = self.variants.flips
+        primary = self.ens_devices[0]
+        total, updates = None, []
+        for members, g, dev in self._ens_partitions():
+            model = self._model_on(dev)
+            x = io.frames[g].to(dev)
+            e, low = self._embed(torch.cat([x.flip(2) if flips[v] else x
+                                            for v in members]), model)
+            ov, scores = io.ov.to(dev), io.scores[0].to(dev)
+            part = None
+            for j, v in enumerate(members):
+                st = sts[v]
+                logits, mem = self._segment(st, e[j], low[j], st.prev_emb,
+                                            st.prev_lab, ov, st.memory,
+                                            scores, model=model)
+                p = self._probs(logits, o_hw, v)
+                part = p if part is None else part + p
+                updates.append((v, e[j], mem))
+            part = part.to(primary)
+            total = part if total is None else total + part
+        em = io.em.to(primary)
+        pred, conf = self._gate(total / len(sts) * em[:, None, None], em,
+                                None if join is None else join.to(primary))
+        io.preds[0].copy_(pred)
+        for v, emb, mem in updates:
+            st = sts[v]
+            dev = st.prev_emb.device
+            for dst, src in zip(st.carried(),
+                                (emb, self._downscale(pred.to(dev), v, st),
+                                 *mem)):
+                dst.copy_(src)
+            st.conf.copy_(self._downscale(conf.to(dev), v, st))
+
     def run_chunk(self, sts: List[_SeqState], io: ChunkIO, ori_hw,
                   join: Optional[torch.Tensor] = None) -> None:
         """One step over the frames of ``io``: for a multi-frame chunk on a
         card a replay of the graph that owns ``io`` (captured at its first
-        use), else ``chunk_step`` eagerly."""
-        if self.device.type != "cuda" or io.frames[0].shape[0] == 1:
+        use), else ``chunk_step`` eagerly; a frame of the sharded ensemble
+        through ``sharded_step``."""
+        if self.ens_devices is not None:
+            self.sharded_step(io, sts, ori_hw, join)
+            return
+        if not self._graphs or io.frames[0].shape[0] == 1:
             self.chunk_step(io, sts, ori_hw, join)
             return
         g = sts[0].graphs[(tuple(tuple(x.shape) for x in io.frames),
@@ -633,7 +769,7 @@ class Evaluator:
         n_rows = max(st.flat[0].shape[0] for st in sts)
         scores = self.init_scores(fs, n_rows)
         ov, em = self._dev_vec(ctx["ov"]), self._dev_vec(ctx["em"])
-        if self.device.type != "cuda" or len(buf) == 1:
+        if not self._graphs or len(buf) == 1:
             io = ChunkIO(self._upload_groups(items), scores, ov, em,
                          torch.empty((len(buf), *ori_hw), dtype=torch.uint8,
                                      device=self.device))

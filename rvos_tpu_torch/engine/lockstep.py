@@ -167,7 +167,8 @@ def _identical(a, b) -> bool:
 def lockstep_masks(cfg: Config, make_model: Callable[[], AOCNet], seq,
                    kmeans_scores: ScoreFn, device="cuda",
                    ref_device="cpu", on_frame=None,
-                   share_masks: bool = False) -> LockstepResult:
+                   share_masks: bool = False,
+                   devices=None) -> LockstepResult:
     """Stream ``seq`` with an evaluator on ``device``, repeating each
     frame's ``segment_frame`` and each bank compaction on a reference
     model on ``ref_device``.  ``make_model()`` returns a fresh model with
@@ -178,9 +179,11 @@ def lockstep_masks(cfg: Config, make_model: Callable[[], AOCNet], seq,
     masks part).  ``share_masks``: see the module's docstring.
     Convolutions run without TF32, which ``device.configure_precision``
     turns off only in parity mode: a comparison with the CPU needs it
-    off under mixed matching too."""
+    off under mixed matching too.  ``devices``: the evaluator's (its
+    context-parallel matching: the reference's ``segment_frame`` runs
+    unsplit)."""
     ev = Evaluator(cfg, make_model(), device=device,
-                   kmeans_scores=kmeans_scores)
+                   kmeans_scores=kmeans_scores, devices=devices)
     torch.backends.cudnn.allow_tf32 = False
     ref = make_model().to(device=ref_device, dtype=ev.dtype).eval()
     watch = _MaskWatch(ev.model, ref, share_masks)
@@ -207,10 +210,10 @@ def lockstep_masks(cfg: Config, make_model: Callable[[], AOCNet], seq,
                                   - ref_emb.float()).abs().max().item())
         return emb, low
 
-    def mirrored(*args):
+    def mirrored(*args, **kw):
         nonlocal max_dlogit, unexplained
         watch.begin(1)
-        logits, memory = segment(*args)
+        logits, memory = segment(*args, **kw)
         with torch.no_grad():
             ref_logits, _ = ref.segment_frame(*(_to(a, ref_device)
                                                 for a in args))
@@ -265,8 +268,8 @@ class _Stash:
     def begin(self, per_step: int):
         self.calls, self.per_step = 0, per_step
 
-    def __call__(self, *args):
-        out = self.fn(*args)
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
         k = self.calls % self.per_step
         self.calls += 1
         tensors = ([out] if torch.is_tensor(out)
@@ -339,8 +342,9 @@ class _MaskWatch:
 
 def lockstep_chunks(cfg: Config, make_model: Callable[[], AOCNet], seq,
                     kmeans_scores: ScoreFn, device="cuda",
-                    ref_device="cpu",
-                    share_masks: bool = False) -> ChunkLockstepResult:
+                    ref_device="cpu", share_masks: bool = False,
+                    devices=None, own_features: bool = False
+                    ) -> ChunkLockstepResult:
     """Stream ``seq`` with a chunked evaluator on ``device``, repeating
     each of its steps eagerly on a reference evaluator on ``ref_device``
     from copies of the step's states and inputs; the masks of every frame
@@ -355,11 +359,17 @@ def lockstep_chunks(cfg: Config, make_model: Callable[[], AOCNet], seq,
     ``ref_device`` from their logits.  Bank compaction runs between steps
     on the evaluator's side only (``lockstep_masks`` holds it); a join
     frame's step is repeated with its label.  ``share_masks``: see the
-    module's docstring.  Convolutions run without TF32 on both sides."""
+    module's docstring.  Convolutions run without TF32 on both sides.
+
+    ``devices``: the evaluator's (the reference runs on ``ref_device``
+    alone): with the sharded ensemble each frame's ``sharded_step`` is
+    held against the one-device ``chunk_step``.  ``own_features``: the
+    reference embeds its frames itself (the sharded ensemble's flip twin
+    embeds alone where the one-device step batches it with its scale)."""
     ev = Evaluator(cfg, make_model(), device=device,
-                   kmeans_scores=kmeans_scores)
+                   kmeans_scores=kmeans_scores, devices=devices)
     ref = Evaluator(cfg, make_model(), device=ref_device,
-                    kmeans_scores=kmeans_scores)
+                    kmeans_scores=kmeans_scores, devices=[ref_device])
     torch.backends.cudnn.allow_tf32 = False
     feats = _Stash(ev.model, "extract_feature")
     logits, ref_logits = (_Stash(m, "segment_frame")
@@ -380,16 +390,24 @@ def lockstep_chunks(cfg: Config, make_model: Callable[[], AOCNet], seq,
                                           ).abs().max().item())
         return got
 
-    ref.model.extract_feature = evaluator_features
+    if not own_features:
+        ref.model.extract_feature = evaluator_features
 
-    def scores(stash, k, ori_hw, em):
-        """Frame ``k``'s decision scores from one side's logits."""
+    def scores(stash, k, ori_hw, em, side):
+        """Frame ``k``'s decision scores from one side's logits, its
+        variants' probabilities added in that side's order."""
         calls = [stash.latest[k * n_var + j][0].float().to(ref_device)
                  for j in range(n_var)]
         if n_var == 1:
             return resize_nchw(calls[0], ori_hw, "bilinear")
-        probs = sum(ref._probs(lg, ori_hw, v) for v, lg in enumerate(calls))
-        return probs / n_var * em[:, None, None]
+        total = None
+        for part in side.sum_order():
+            probs = None
+            for v in part:
+                p = ref._probs(calls[v], ori_hw, v)
+                probs = p if probs is None else probs + p
+            total = probs if total is None else total + probs
+        return total / n_var * em[:, None, None]
 
     def mirrored(sts, io, ori_hw, join=None):
         k_n = io.frames[0].shape[0]
@@ -414,8 +432,8 @@ def lockstep_chunks(cfg: Config, make_model: Callable[[], AOCNet], seq,
                      - want)[valid]
                 diffs["logit"] = max(diffs["logit"], d.abs().max().item())
             diffs["unexplained"] += margin_gate(
-                scores(logits, k, ori_hw, io_ref.em),
-                scores(ref_logits, k, ori_hw, io_ref.em), parted)[2]
+                scores(logits, k, ori_hw, io_ref.em, ev),
+                scores(ref_logits, k, ori_hw, io_ref.em, ref), parted)[2]
         steps.append(k_n)
 
     ev.run_chunk = mirrored

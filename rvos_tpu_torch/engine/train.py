@@ -1,4 +1,5 @@
-"""Training on one GPU (PyTorch port of ``rvos_tpu/engine/train.py``).
+"""Training on one GPU or several (PyTorch port of
+``rvos_tpu/engine/train.py``).
 
 A step runs the JAX package's rollout of ``DATA_CURR_SEQ_LEN`` frames:
 
@@ -39,13 +40,33 @@ k-means draws the JAX trainer's own scores (``ops.prng``): the run key
 ``PRNGKey(1234)`` is split once per step.  A fresh run sees the JAX
 package's draws and data order; a resumed run continues both where the
 checkpoint left them (the JAX trainer restarts them at resume).
+
+Data parallelism (the JAX package's ``data`` mesh axis): one process per
+card in a ``torch.distributed`` group (``parallel.launch``,
+``cli/train.py --gpu_num N``), each with its contiguous slice of every
+global batch (``TrainBatcher(process_index=, process_count=)``).  A
+rank's items get exactly what a single process gives them: the k-means
+draws and the dropout masks are drawn for the global batch and sliced
+(``part``).  After ``backward`` the gradients are averaged over the
+ranks in a few flat buffers (``parallel.distributed.reduce_mean_``) —
+an explicit reduce, not ``DistributedDataParallel``: the step never
+calls the model's ``forward`` and runs each method many times per
+backward under non-reentrant checkpoints — and the optimizer clips,
+skips and logs ``grad_norm`` from the reduced gradient on every rank
+alike.  Parameters and optimizer state are broadcast from rank 0 after
+construction and after a resume; losses and IoUs are global-batch means;
+rank 0 alone writes logs, images and checkpoints, and every rank waits
+for each save.  Context parallelism (``MESH_MODEL_AXIS > 1`` over the
+process's ``devices``): ``GlobalMatchingMin``, cluster and proxy
+matching split their query rows over the devices (``segment_frame``'s
+``cp_devices``).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,29 +77,20 @@ from torch.utils.checkpoint import checkpoint
 from ..configs import Config
 from ..device import configure_precision, resolve_device
 from ..models import AOCNet, DecoderMemory
+from ..models.deeplab import BatchDraws
 from ..ops import prng
+from ..parallel import distributed
+from ..parallel.mesh import resolved_cp_devices
 from ..ops.resize import resize_nchw
 from ..weights import init_random_
 from .learning import TrainOptimizer, lr_schedule
 from .loss import batched_iou, hard_mining_ce
 
 
-def check_train_config(cfg: Config, device: torch.device) -> None:
-    """Raise for what this port does not train yet, naming its ROADMAP
-    item, instead of running something else."""
+def check_train_config(cfg: Config) -> None:
     if cfg.TRAIN_COMPUTE_DTYPE not in ("float32", "bfloat16"):
         raise ValueError(
             f"TRAIN_COMPUTE_DTYPE {cfg.TRAIN_COMPUTE_DTYPE!r}")
-    if cfg.MESH_MODEL_AXIS > 1:
-        raise NotImplementedError(
-            "context-parallel training (MESH_MODEL_AXIS > 1) is not "
-            "ported: ROADMAP Queue A item 8")
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    if min(cfg.MESH_DATA_AXIS, n_dev) > 1:
-        raise NotImplementedError(
-            f"a data mesh of {min(cfg.MESH_DATA_AXIS, n_dev)} devices: "
-            "multi-GPU training is ROADMAP Queue A item 8 (set "
-            "MESH_DATA_AXIS=1 or --gpu_num 1)")
 
 
 def cast_state(module: nn.Module, dtype: torch.dtype
@@ -166,29 +178,41 @@ def bank_rows(cfg: Config, hw) -> int:
     return min(rows, cap) if cap else rows
 
 
-def make_train_step(cfg: Config, model: AOCNet, optimizer: TrainOptimizer):
-    """``train_step(batch, step, key, seeds)`` → metrics, with the loss
-    as ``train_step.loss_fn(batch, step, key, seeds)`` → ``(loss,
-    (losses [T], ious [T], last prediction or None))``.  ``batch``: the
-    ``TrainBatcher`` dict on the model's device; ``key``: this step's
-    key ([2] int64); ``seeds``: three dropout seeds (ref, prev, current
-    frames) or None (no dropout)."""
+def make_train_step(cfg: Config, model: AOCNet, optimizer: TrainOptimizer,
+                    cp_devices: Optional[Sequence[torch.device]] = None):
+    """``train_step(batch, step, key, seeds, inspect)`` → metrics, with
+    the loss as ``train_step.loss_fn(batch, step, key, seeds, part)`` →
+    ``(loss, (losses [T], ious [T], last prediction or None))``.
+    ``batch``: the ``TrainBatcher`` dict (this process's slice) on the
+    model's device; ``key``: this step's key ([2] int64); ``seeds``: three
+    dropout seeds (ref, prev, current frames) or None (no dropout);
+    ``part``: ``(start, total)``, the slice's first item in a global batch
+    of ``total`` (default: the batch is the whole batch).  ``train_step``
+    takes the part of this process in its group and averages the
+    gradients over the group before the optimizer; ``inspect(stage,
+    model)``, when given, sees the gradients after the backward
+    (``"backward"``) and after the reduce (``"reduced"``), before the
+    update.
+    ``cp_devices``: see ``segment_frame``."""
     o = min(cfg.DATA_MAX_OBJ_NUM + 1, cfg.MODEL_MAX_OBJ_NUM)
     remat = cfg.TRAIN_REMAT
     in_dtype = (torch.bfloat16 if cfg.TRAIN_COMPUTE_DTYPE == "bfloat16"
                 else torch.float32)
 
-    def extract(net, imgs, seed):
+    def extract(net, imgs, seed, groups, part):
         gen = None
         if seed is not None and cfg.MODEL_ASPP_DROPOUT > 0:
-            gen = torch.Generator(device=imgs.device).manual_seed(seed)
+            gen = BatchDraws(
+                torch.Generator(device=imgs.device).manual_seed(seed),
+                groups, part[1], part[0])
         emb, low = net("extract_feature", _normalize(imgs).to(in_dtype), gen)
         return emb.to(in_dtype), low.to(in_dtype)
 
-    def run_extract(net, imgs, seed):
+    def run_extract(net, imgs, seed, groups, part):
         if remat:
-            return checkpoint(extract, net, imgs, seed, use_reentrant=False)
-        return extract(net, imgs, seed)
+            return checkpoint(extract, net, imgs, seed, groups, part,
+                              use_reentrant=False)
+        return extract(net, imgs, seed, groups, part)
 
     def frame(net, step, cur_emb, cur_low, cur_lab_full, ref_emb, ref_onehot,
               prev_e, prev_l, obj_valid, slots, valid, scores):
@@ -201,7 +225,8 @@ def make_train_step(cfg: Config, model: AOCNet, optimizer: TrainOptimizer):
                 "segment_frame",
                 cur_emb[b], cur_low[b], ref_emb[b][None], ref_onehot[b][None],
                 one, prev_e[b], _onehot(prev_l[b], o), obj_valid[b],
-                DecoderMemory(slots[b], valid[b]), scores[b], train=True)
+                DecoderMemory(slots[b], valid[b]), scores[b], train=True,
+                cp_devices=cp_devices)
             logits.append(lg)
             new_slots.append(mem.slots.to(in_dtype))
             new_valid.append(mem.valid)
@@ -215,14 +240,16 @@ def make_train_step(cfg: Config, model: AOCNet, optimizer: TrainOptimizer):
         return (losses.mean(), full.argmax(1), torch.stack(new_slots),
                 torch.stack(new_valid))
 
-    def loss_fn(batch, step: int, key: torch.Tensor, seeds=None):
+    def loss_fn(batch, step: int, key: torch.Tensor, seeds=None,
+                part: Optional[Tuple[int, int]] = None):
         seeds = seeds if seeds is not None else (None, None, None)
+        t_len, b = batch["curr_img"].shape[:2]
+        part = (0, b) if part is None else part
         net = on_copies(model, in_dtype)
-        ref_emb, _ = run_extract(net, batch["ref_img"], seeds[0])
-        prev_emb, _ = run_extract(net, batch["prev_img"], seeds[1])
-        b, h, w, _ = ref_emb.shape
+        ref_emb, _ = run_extract(net, batch["ref_img"], seeds[0], 1, part)
+        prev_emb, _ = run_extract(net, batch["prev_img"], seeds[1], 1, part)
+        _, h, w, _ = ref_emb.shape
         hw = (h, w)
-        t_len = batch["curr_img"].shape[0]
         dev = ref_emb.device
 
         ref_lab = _downscale_labels(batch["ref_label"], hw)
@@ -237,11 +264,14 @@ def make_train_step(cfg: Config, model: AOCNet, optimizer: TrainOptimizer):
 
         curr = batch["curr_img"]
         embs, lows = run_extract(net, curr.reshape((-1,) + curr.shape[2:]),
-                                 seeds[2])
+                                 seeds[2], t_len, part)
         embs = embs.reshape((t_len, b) + embs.shape[1:])
         lows = lows.reshape((t_len, b) + lows.shape[1:])
-        scores = prng.train_kmeans_scores(key, t_len, b, o,
-                                          bank_rows(cfg, hw), dev)
+        # the global batch's draws, this slice's items (item i of the
+        # batch draws from the i-th split of the step key)
+        scores = prng.train_kmeans_scores(key, t_len, part[1], o,
+                                          bank_rows(cfg, hw), dev
+                                          )[:, part[0]:part[0] + b]
 
         prev_e, prev_gt, prev_pred = prev_emb, prev_lab, prev_lab
         use_pred = step > cfg.TRAIN_START_SEQ_TRAINING_STEPS
@@ -268,17 +298,50 @@ def make_train_step(cfg: Config, model: AOCNet, optimizer: TrainOptimizer):
         last = pred_full if cfg.TRAIN_IMG_LOG else None
         return losses.mean(), (losses, torch.stack(ious), last)
 
-    def train_step(batch, step: int, key: torch.Tensor, seeds=None) -> Dict:
+    def train_step(batch, step: int, key: torch.Tensor, seeds=None,
+                   inspect=None) -> Dict:
+        b = batch["curr_img"].shape[1]
+        start, _ = distributed.process_batch_slice(
+            b * distributed.world_size())
         optimizer.zero_grad()
-        loss, (losses, ious, last) = loss_fn(batch, step, key, seeds)
+        loss, (losses, ious, last) = loss_fn(
+            batch, step, key, seeds, (start, b * distributed.world_size()))
         loss.backward()
+        out = {"reduce_bytes": 0, "reduce_ms": 0.0}
+        for p in optimizer.all_params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if inspect is not None:
+            inspect("backward", model)
+        if torch.distributed.is_initialized():
+            _sync(loss.device)
+            t0 = time.perf_counter()
+            out["reduce_bytes"] = distributed.reduce_mean_(
+                [p.grad for p in optimizer.all_params])
+            _sync(loss.device)
+            out["reduce_ms"] = (time.perf_counter() - t0) * 1e3
+            # the global means: this slice's means averaged over the
+            # slices (all of one size)
+            t_len = losses.shape[0]
+            seq = torch.cat([loss.detach()[None], losses.detach(),
+                             ious]).float()
+            distributed.reduce_mean_([seq])
+            loss, losses, ious = seq[0], seq[1:t_len + 1], seq[t_len + 1:]
+        if inspect is not None:
+            inspect("reduced", model)
         res = optimizer.step()
-        return {"loss": loss.detach(), "seq_losses": losses.detach(),
-                "iou": ious.mean(), "grad_norm": res["grad_norm"],
-                "applied": res["applied"], "pred": last}
+        out.update({"loss": loss.detach(), "seq_losses": losses.detach(),
+                    "iou": ious.mean(), "grad_norm": res["grad_norm"],
+                    "applied": res["applied"], "pred": last})
+        return out
 
     train_step.loss_fn = loss_fn
     return train_step
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _train_log_images(batch: Dict[str, np.ndarray], pred_full: np.ndarray
@@ -311,21 +374,26 @@ def _train_log_images(batch: Dict[str, np.ndarray], pred_full: np.ndarray
 
 
 class Trainer:
-    """One-GPU trainer: model and optimizer, auto-resume, explicit
-    resume or a pretrained warm start, and ``fit``.
+    """Trainer of one process: model and optimizer, auto-resume, explicit
+    resume or a pretrained warm start, and ``fit``; one rank of a
+    data-parallel run when a ``torch.distributed`` group is initialized
+    (``parallel.launch``, ``parallel.distributed.maybe_initialize``).
 
     ``device``: CUDA unless ``"cpu"`` is asked for (raises without a
     card).  ``init_state``: a state dict to start from (e.g. the JAX
     package's parameters through ``weights.from_jax_params``), else
     random weights from ``torch.Generator().manual_seed(seed)``; the
-    same seed drives the dropout draws."""
+    same seed drives the dropout draws (every rank passes the same).
+    ``devices``: this process's devices for context parallelism
+    (``MESH_MODEL_AXIS``; default the trainer's device alone, on which
+    the matching is not split)."""
 
     def __init__(self, cfg: Config, device=None,
                  init_state: Optional[Dict[str, torch.Tensor]] = None,
-                 seed: int = 0):
+                 seed: int = 0, devices: Optional[Sequence] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        check_train_config(cfg, self.device)
+        check_train_config(cfg)
         configure_precision(cfg)
         model = AOCNet(cfg)
         if init_state is not None:
@@ -339,8 +407,21 @@ class Trainer:
         self.run_key = prng.prng_key(prng.TRAIN_SEED)
         self.data_pos = (0, 0)          # (epoch, batches done in it)
         self.dropout_gen = torch.Generator().manual_seed(seed)
-        self._step_fn = make_train_step(cfg, self.model, self.optimizer)
+        self.cp_devices = resolved_cp_devices(
+            cfg, [self.device] if devices is None else devices)
+        self._step_fn = make_train_step(cfg, self.model, self.optimizer,
+                                        self.cp_devices)
         self._process_pretrained_model()
+        self._broadcast_state()
+
+    def _broadcast_state(self):
+        """Rank 0's parameters, buffers and momentum to every rank (after
+        construction and resume; a no-op outside a group)."""
+        momentum = [self.optimizer.sgd.state[p]["momentum_buffer"]
+                    for p in self.optimizer.train_params
+                    if "momentum_buffer" in self.optimizer.sgd.state[p]]
+        distributed.broadcast_([*self.model.parameters(),
+                                *self.model.buffers(), *momentum])
 
     # -- state -----------------------------------------------------------
     def state_dict(self) -> Dict:
@@ -412,12 +493,19 @@ class Trainer:
                                self.cfg.TRAIN_MAX_KEEP_CKPT)
 
     # -- steps -----------------------------------------------------------
-    def train_step(self, batch: Dict[str, np.ndarray], key: torch.Tensor
-                   ) -> Dict:
-        seeds = [int(s) for s in torch.randint(
-            0, 2 ** 62, (3,), generator=self.dropout_gen)]
+    def draw_seeds(self):
+        """A step's three dropout seeds (reference, previous and current
+        frames), from the trainer's generator."""
+        return [int(s) for s in torch.randint(0, 2 ** 62, (3,),
+                                              generator=self.dropout_gen)]
+
+    def train_step(self, batch: Dict[str, np.ndarray], key: torch.Tensor,
+                   inspect=None) -> Dict:
+        """One step on this process's slice of a global batch."""
+        seeds = self.draw_seeds()
         metrics = self._step_fn(batch_to_device(batch, self.device),
-                                self.step, key.to(self.device), seeds)
+                                self.step, key.to(self.device), seeds,
+                                inspect)
         self.step += 1
         return metrics
 
@@ -429,11 +517,15 @@ class Trainer:
         step, every ``log_every`` and the last (and a JSON line each in
         the metrics log); checkpoint every ``save_every`` steps and at
         the end when ``ckpt_dir`` is given.  ``callback(step, metrics)``
-        runs after each step (measurement scripts time steps with it)."""
+        runs after each step (measurement scripts time steps with it).
+        In a data-parallel run ``batcher`` yields this rank's slices; rank
+        0 alone prints and writes, and every rank waits for each save."""
         from ..utils.logging import MetricsLogger
         cfg = self.cfg
         total = max_steps or cfg.TRAIN_TOTAL_STEPS
-        logger = MetricsLogger(cfg.result_dirs()["log"], tb=cfg.TRAIN_TBLOG)
+        primary = distributed.is_primary()
+        logger = (MetricsLogger(cfg.result_dirs()["log"], tb=cfg.TRAIN_TBLOG)
+                  if primary else None)
         epoch, done = self.data_pos
         t0 = time.time()
         while self.step < total:
@@ -445,7 +537,8 @@ class Trainer:
                 step = self.step
                 if callback is not None:
                     callback(step, metrics)
-                if step % log_every == 0 or step == 1 or step >= total:
+                if primary and (step % log_every == 0 or step == 1
+                                or step >= total):
                     loss = float(metrics["loss"])
                     iou = float(metrics["iou"])
                     lr = self.lr_fn(step)
@@ -461,11 +554,14 @@ class Trainer:
                     t0 = time.time()
                 if ckpt_dir and ((save_every and step % save_every == 0)
                                  or step >= total):
-                    self.save(ckpt_dir)
+                    if primary:
+                        self.save(ckpt_dir)
+                    distributed.barrier()
                 if step >= total:
                     break
             else:
                 epoch, done = epoch + 1, 0
                 self.data_pos = (epoch, done)
-        logger.close()
+        if logger is not None:
+            logger.close()
         return self

@@ -13,7 +13,7 @@ Matching-map concat order:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -86,12 +86,12 @@ class AOCNet(nn.Module):
             beta_percentage=c.MODEL_BETA_PERCENTAGE)
 
     # ------------------------------------------------------------------
-    def extract_feature(self, imgs: torch.Tensor,
-                        generator: Optional[torch.Generator] = None
+    def extract_feature(self, imgs: torch.Tensor, generator=None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[N, H, W, 3] → (embedding [N, h4, w4, emb], low-level
-        [N, h4, w4, 256 or 24]).  ``generator`` draws the ASPP dropout mask
-        (training); without one the dropout is the identity."""
+        [N, h4, w4, 256 or 24]).  ``generator`` (a ``torch.Generator`` or
+        ``deeplab.BatchDraws``) draws the ASPP dropout mask (training);
+        without one the dropout is the identity."""
         feats, low = self.feature_extracter(imgs.permute(0, 3, 1, 2),
                                             generator)
         emb = self.semantic_embedding(feats)
@@ -118,6 +118,7 @@ class AOCNet(nn.Module):
         flat_lab: Optional[torch.Tensor] = None,   # [P, O]
         flat_obj: Optional[torch.Tensor] = None,   # [n_tiles] tile→object
         train: bool = False,
+        cp_devices: Optional[Sequence[torch.device]] = None,
     ) -> Tuple[torch.Tensor, DecoderMemory]:
         """One frame's matching + calibration decode → logits [O, h, w].
 
@@ -128,7 +129,14 @@ class AOCNet(nn.Module):
         other bank — no cap, the fg-union compaction, or the bank
         flattened (and fg-compacted) here when none is precompacted —
         runs through kernel 3 (B.3).  ``kmeans_scores`` has one row of
-        ``R`` draws per object, ``R`` the rows of the flat bank."""
+        ``R`` draws per object, ``R`` the rows of the flat bank.
+
+        ``cp_devices`` (``parallel.mesh.resolved_cp_devices``): context
+        parallelism — global, cluster and proxy matching split their
+        query rows over these devices, each shard on the flat route (B.3,
+        or ``GlobalMatchingMin`` in training), whatever the bank's layout,
+        as the JAX package sends every context-parallel bank to its flat
+        route; local matching is not split."""
         c = self.cfg
         h, w, _ = current_emb.shape
         o = ref_onehot.shape[-1]
@@ -158,20 +166,21 @@ class AOCNet(nn.Module):
                         and bool(c.MATCHING_MAX_REF_PIXELS))
 
         # 1. global pixel matching
+        cp = cp_devices
         if train:
             d_min = global_matching_min(
                 current_emb.reshape(h * w, -1).to(dtype), flat_emb.to(dtype),
-                flat_lab.to(dtype))
+                flat_lab.to(dtype), devices=cp)
             global_fg = squash_distance(d_min.reshape(h, w, o)[..., None],
                                         bias)
-        elif seg_bank:
+        elif seg_bank and cp is None:
             global_fg = global_matching_flat_segmented(
                 current_emb, flat_emb.to(dtype), flat_lab.to(dtype), bias,
                 flat_obj, dtype=dtype, mixed=mixed)
         else:
             global_fg = global_matching_flat(
                 current_emb, flat_emb.to(dtype), flat_lab.to(dtype), bias,
-                dtype=dtype, mixed=mixed)
+                dtype=dtype, mixed=mixed, devices=cp)
 
         # 2. AOP cluster matching, on detached inputs (no gradient
         # reaches the bank through 20 Lloyd iterations)
@@ -180,13 +189,13 @@ class AOCNet(nn.Module):
                                     kmeans_scores, k=c.MODEL_CLUSTER_NUM,
                                     iters=c.MODEL_KMEANS_ITERS, mixed=mixed)
         global_cluster = cluster_matching(current_emb, banks, bias,
-                                          dtype=dtype)
+                                          dtype=dtype, devices=cp)
 
         # 3+4. instance proxies, then both local matchings in one launch
         heads = attention_heads(ref_emb_bank, ref_onehot, slot_valid,
                                 prev_emb, prev_onehot, c.MODEL_EPSILON)
         global_proxy = proxy_matching(current_emb, heads.ref_pos, bias,
-                                      dtype=dtype)
+                                      dtype=dtype, devices=cp)
         prev_inst = proxy_reconstructed_embedding(prev_onehot, heads.prev_pos)
         local_pair = local_matching_bank_stacked(
             current_emb, torch.stack([prev_emb, prev_inst.to(prev_emb.dtype)]),

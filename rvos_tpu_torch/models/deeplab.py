@@ -6,14 +6,16 @@ ASPP (frozen BN, 2048 or 320→1280→256, then dropout) → decoder
 a plain conv's parameters; here it is ``nn.Conv2d``.
 
 The ASPP dropout (``MODEL_ASPP_DROPOUT``) draws its mask from the
-explicit ``torch.Generator`` passed to ``forward``; without one (every
-inference call) it is the identity.  A caller that recomputes a forward
-(``torch.utils.checkpoint``) passes a generator seeded the same way each
-time, so the recomputed mask is the same one."""
+explicit ``torch.Generator`` passed to ``forward``, or from a
+``BatchDraws`` (a slice of a whole batch's draws, for one process of a
+data-parallel run); without one (every inference call) it is the
+identity.  A caller that recomputes a forward (``torch.utils.checkpoint``)
+passes a generator seeded the same way each time, so the recomputed mask
+is the same one."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 from torch import nn
@@ -26,6 +28,24 @@ from .resnet import FrozenBatchNorm2d, ResNet101
 # ``build_backbone`` dispatch
 BACKBONES = {"resnet": (ResNet101, 2048, 256),
              "mobilenet": (MobileNetV2, 320, 24)}
+
+
+class BatchDraws(NamedTuple):
+    """Uniform draws of a batch of ``groups × total`` items (group-major,
+    as the training step flattens its [T, B] frames), of which a forward
+    holds items ``[start, start + n)`` of every group: each process of a
+    data-parallel run draws the whole batch's mask and keeps its own
+    items', the mask a single process gives them."""
+    generator: torch.Generator
+    groups: int
+    total: int
+    start: int
+
+    def rand(self, shape, device) -> torch.Tensor:
+        per = shape[0] // self.groups
+        full = torch.rand((self.groups, self.total) + tuple(shape[1:]),
+                          generator=self.generator, device=device)
+        return full[:, self.start:self.start + per].reshape(shape)
 
 
 class DeepLabASPP(nn.Module):
@@ -43,7 +63,7 @@ class DeepLabASPP(nn.Module):
         self.conv1 = nn.Conv2d(1280, 256, 1, bias=False)
         self.bn1 = FrozenBatchNorm2d(256)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator=None):
         outs = [torch.relu(getattr(self, f"aspp{i}_bn")(
             getattr(self, f"aspp{i}_conv")(x))) for i in range(1, 5)]
         x5 = x.mean(dim=(2, 3), keepdim=True)
@@ -53,7 +73,11 @@ class DeepLabASPP(nn.Module):
         if generator is None or self.dropout_rate == 0.0:
             return x
         keep = 1.0 - self.dropout_rate
-        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        if isinstance(generator, BatchDraws):
+            u = generator.rand(x.shape, x.device)
+        else:
+            u = torch.rand(x.shape, generator=generator, device=x.device)
+        mask = u < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -89,7 +113,6 @@ class DeepLab(nn.Module):
         self.aspp = DeepLabASPP(width, dropout_rate)
         self.decoder = DeepLabDecoder(low_width)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x, generator=None) -> Tuple[torch.Tensor, torch.Tensor]:
         feats, low = self.backbone(x)
         return self.decoder(self.aspp(feats, generator), low), low

@@ -15,11 +15,12 @@ package's own (``ops.prng``).  Assignment and update products are plain
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from .matching import WRONG_LABEL_PADDING_DISTANCE, squash_distance
+from .matching import (WRONG_LABEL_PADDING_DISTANCE, shard_rows,
+                       squash_distance)
 
 
 class ClusterBanks(NamedTuple):
@@ -79,21 +80,27 @@ def cluster_objects(ref_emb_flat: torch.Tensor, ref_onehot_flat: torch.Tensor,
 
 
 def cluster_matching(query_emb: torch.Tensor, banks: ClusterBanks,
-                     dis_bias: torch.Tensor, *, dtype=torch.float32
-                     ) -> torch.Tensor:
+                     dis_bias: torch.Tensor, *, dtype=torch.float32,
+                     devices: Optional[Sequence] = None) -> torch.Tensor:
     """Query ↔ proxy-bank min distances → [H, W, O, 2] (centroid bank,
-    cluster-mean bank)."""
+    cluster-mean bank); ``devices``: the query rows split over them, the
+    banks copied to each (``ops.matching.shard_rows``)."""
     h, w, c = query_emb.shape
     q = query_emb.reshape(h * w, c).to(dtype).float()
-    q2 = q.square().sum(-1)
 
-    def bank_min(bank, valid):
-        o, k, _ = bank.shape
-        b = bank.reshape(o * k, c).to(dtype).float()
-        d = q2[:, None] + b.square().sum(-1)[None] - 2.0 * (q @ b.T)
-        pen = (1.0 - valid.float()) * WRONG_LABEL_PADDING_DISTANCE
-        return (d.reshape(-1, o, k) + pen[None]).min(dim=-1).values
+    def run(q, *banks):
+        q2 = q.square().sum(-1)
 
-    d = torch.stack([bank_min(banks.centroids, banks.cent_valid),
-                     bank_min(banks.means, banks.mean_valid)], dim=-1)
+        def bank_min(bank, valid):
+            o, k, _ = bank.shape
+            b = bank.reshape(o * k, c).to(dtype).float()
+            d = q2[:, None] + b.square().sum(-1)[None] - 2.0 * (q @ b.T)
+            pen = (1.0 - valid.float()) * WRONG_LABEL_PADDING_DISTANCE
+            return (d.reshape(-1, o, k) + pen[None]).min(dim=-1).values
+
+        cent, cv, means, mv = banks
+        return torch.stack([bank_min(cent, cv), bank_min(means, mv)], dim=-1)
+
+    d = run(q, *banks) if devices is None else shard_rows(run, q, devices,
+                                                          *banks)
     return squash_distance(d.reshape(h, w, -1, 2), dis_bias)

@@ -20,7 +20,7 @@ channel 0 = background, distance maps ``[H, W, O, k]``.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -154,6 +154,33 @@ def compact_reference_bank_occupancy(r_emb: torch.Tensor,
     return emb, lab, tile_obj.to(torch.int32)
 
 
+def shard_rows(fn: Callable, q: torch.Tensor, devices: Sequence,
+               *shared: torch.Tensor) -> torch.Tensor:
+    """Context parallelism over query rows (the JAX package's
+    ``_cp_rows``/``_cp_release`` around a matching op): ``fn(q_shard,
+    *shared)`` on contiguous row shards of ``q`` [M, ...], shard ``i`` on
+    ``devices[i]`` with ``shared`` copied there once per device, the
+    result rows gathered on ``devices[0]`` in order.  ``M`` is padded
+    with zero rows to a multiple of the device count, so that no shard
+    is empty, and the padding is dropped.  A shard is a slice of the
+    contiguous ``q``, itself contiguous: a copy only when its device
+    differs.  Differentiable (the copies and the concatenation are)."""
+    devices = [torch.device(d) for d in devices]
+    n, m = len(devices), q.shape[0]
+    pad = (-m) % n
+    if pad:
+        q = torch.cat([q, q.new_zeros((pad,) + q.shape[1:])])
+    size = q.shape[0] // n
+    copies = {}
+    outs = []
+    for i, dev in enumerate(devices):
+        if dev not in copies:
+            copies[dev] = [t.to(dev) for t in shared]
+        out = fn(q[i * size:(i + 1) * size].to(dev), *copies[dev])
+        outs.append(out.to(devices[0]))
+    return torch.cat(outs)[:m]
+
+
 def global_matching_flat_segmented(
     query_emb: torch.Tensor,     # [H, W, C]
     r_emb: torch.Tensor,         # [P, C] label-segmented bank
@@ -195,30 +222,43 @@ def global_matching_flat(
     tile_r: int = 4096,
     dtype=torch.float32,
     mixed: bool = False,
+    devices: Optional[Sequence] = None,
 ) -> torch.Tensor:
     """Per-object NN distance maps over any flat bank → [H, W, O, 1].
 
     On CUDA tensors this launches kernel 3 (``global_flat_min``, B.3); on
     CPU tensors it runs that kernel's plain version, ``tile_r`` bank rows
     at a time.  ``mixed`` rounds the cross term's operands to bf16, as
-    the TPU kernel does (the JAX package's CPU path ignores it)."""
+    the TPU kernel does (the JAX package's CPU path ignores it).
+    ``devices``: context parallelism, one launch per query-row shard
+    (``shard_rows``), the bank copied to each device."""
     h, w, c = query_emb.shape
     o = r_lab.shape[-1]
     q = query_emb.reshape(h * w, c).to(dtype)
-    d_min = global_flat_min(q, r_emb.to(dtype), r_lab.to(dtype), mixed,
-                            tile_r=tile_r)
+
+    def run(q, r, lab):
+        return global_flat_min(q, r, lab, mixed, tile_r=tile_r)
+
+    args = (r_emb.to(dtype), r_lab.to(dtype))
+    d_min = run(q, *args) if devices is None else shard_rows(run, q, devices,
+                                                             *args)
     return squash_distance(d_min.reshape(h, w, o)[..., None], dis_bias)
 
 
 def proxy_matching(query_emb: torch.Tensor, proxies: torch.Tensor,
-                   dis_bias: torch.Tensor, *, dtype=torch.float32
-                   ) -> torch.Tensor:
-    """Distance of every query pixel to each object's proxy → [H, W, O, 1]."""
+                   dis_bias: torch.Tensor, *, dtype=torch.float32,
+                   devices: Optional[Sequence] = None) -> torch.Tensor:
+    """Distance of every query pixel to each object's proxy → [H, W, O, 1];
+    ``devices``: the query rows split over them (``shard_rows``)."""
     h, w, c = query_emb.shape
     q = query_emb.reshape(h * w, c).to(dtype).float()
     p = proxies.to(dtype).float()
-    d = (q.square().sum(-1)[:, None] + p.square().sum(-1)[None]
-         - 2.0 * (q @ p.T))
+
+    def run(q, p):
+        return (q.square().sum(-1)[:, None] + p.square().sum(-1)[None]
+                - 2.0 * (q @ p.T))
+
+    d = run(q, p) if devices is None else shard_rows(run, q, devices, p)
     return squash_distance(d.reshape(h, w, -1)[..., None], dis_bias)
 
 

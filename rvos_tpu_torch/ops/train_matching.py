@@ -52,12 +52,13 @@ bfloat16 inputs (bf16 training, ``MATCHING_DTYPE="bfloat16"``):
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from .cuda_local import _window
+from .matching import shard_rows
 
 _PEN = 5e4
 _VJP_TILE_R = 4096
@@ -131,10 +132,16 @@ class GlobalMatchingMin(torch.autograd.Function):
         return dq.to(q.dtype), dr, None
 
 
-def global_matching_min(q: torch.Tensor, r: torch.Tensor,
-                        lab: torch.Tensor) -> torch.Tensor:
-    """q [M, C], r [R, C], lab [R, O] → [M, O] (differentiable in q, r)."""
-    return GlobalMatchingMin.apply(q, r, lab)
+def global_matching_min(q: torch.Tensor, r: torch.Tensor, lab: torch.Tensor,
+                        devices: Optional[Sequence] = None) -> torch.Tensor:
+    """q [M, C], r [R, C], lab [R, O] → [M, O] (differentiable in q, r).
+    ``devices``: context parallelism, ``GlobalMatchingMin`` on each
+    query-row shard (``ops.matching.shard_rows``) with the bank copied to
+    each device; the bank's gradient is the sum of the shards', which
+    autograd forms through the copies."""
+    if devices is None:
+        return GlobalMatchingMin.apply(q, r, lab)
+    return shard_rows(GlobalMatchingMin.apply, q, devices, r, lab)
 
 
 def local_min_argmin(x: torch.Tensor, ys: torch.Tensor, labels: torch.Tensor,

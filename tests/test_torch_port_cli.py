@@ -180,13 +180,11 @@ def test_train_cli_float16_trains_on_the_cpu(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--gpu_num", "2", "--device", "cpu"], NotImplementedError),
     ([], RuntimeError),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, argv,
                                                error):
-    """Several GPUs are not ported; without ``--device cpu`` and without a
-    card the CLI raises."""
+    """Without ``--device cpu`` and without a card the CLI raises."""
     from rvos_tpu_torch.cli import train as train_cli
     if not argv and torch.cuda.is_available():
         pytest.skip("a card is visible")
@@ -194,3 +192,76 @@ def test_train_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, argv,
     with pytest.raises(error):
         train_cli.main(["--config", "tiny_test", "--synthetic",
                         "--total_step", "1", *argv])
+
+
+def test_train_cli_trains_on_two_processes(tmp_path):
+    """``--gpu_num 2 --device cpu``: two gloo processes spawned by the
+    CLI, a global batch of two (one item each); rank 0 alone prints
+    ``Itr:1`` and ``Itr:2`` and writes the log and the checkpoint."""
+    import json
+    import re
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="2")
+    cmd = [sys.executable, "-m", "rvos_tpu_torch.cli.train", "--config",
+           "tiny_test", "--synthetic", "--total_step", "2", "--device", "cpu",
+           "--gpu_num", "2", "--batch_size", "2"]
+    out = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    itr = re.findall(r"^Itr:(\d+), .*L:(\S+) IoU", out.stdout, re.M)
+    assert [int(i) for i, _ in itr] == [1, 2], out.stdout
+    assert all(np.isfinite(float(v)) for _, v in itr)
+    res = tmp_path / "workdir" / "result" / "tiny"
+    lines = (res / "log" / "metrics.jsonl").read_text().splitlines()
+    assert [json.loads(x)["step"] for x in lines] == [1, 2]
+    assert sorted(os.listdir(res / "ckpt")) == ["save_step_2.pth"]
+
+
+@pytest.mark.parametrize("argv,shards", [
+    ((), ["test2"]),
+    (("--shard_id", "0", "--shard_num", "3"), ["test1"]),
+])
+def test_eval_cli_takes_its_shard_from_the_run(tmp_path, monkeypatch,
+                                               capsys, argv, shards):
+    """Under ``RVOS_MULTIHOST`` (the join monkeypatched: rank 1 of 3) the
+    default ``--shard_id/--shard_num`` become the rank and the world size;
+    explicit ones stay."""
+    from rvos_tpu_torch.parallel import distributed
+    monkeypatch.setattr(distributed, "maybe_initialize",
+                        lambda env=None, device="cuda": True)
+    monkeypatch.setattr(distributed, "rank", lambda: 1)
+    monkeypatch.setattr(distributed, "world_size", lambda: 3)
+    got = _run(tmp_path, "mh", *argv)
+    assert list(got) == shards
+    assert f"Shard {argv[1] if argv else 1}/3" in capsys.readouterr().out
+
+
+def test_maybe_initialize_joins_a_run(monkeypatch):
+    """``RVOS_MULTIHOST=1`` with a coordinator: a gloo group of one on the
+    CPU; without the flag nothing happens, without the variables it
+    raises."""
+    import socket
+
+    import torch.distributed as dist
+
+    from rvos_tpu_torch.parallel import distributed
+    assert distributed.maybe_initialize({}) is False
+    with pytest.raises(ValueError, match="RVOS_COORDINATOR"):
+        distributed.maybe_initialize({"RVOS_MULTIHOST": "1"}, device="cpu")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RVOS_MULTIHOST": "1", "RVOS_COORDINATOR": f"127.0.0.1:{port}",
+           "RVOS_NUM_PROCESSES": "1", "RVOS_PROCESS_ID": "0"}
+    assert distributed.maybe_initialize(env, device="cpu") is True
+    try:
+        assert (distributed.rank(), distributed.world_size()) == (0, 1)
+        assert distributed.process_devices(env, "cpu") == [torch.device("cpu")]
+        t = torch.arange(5.0)
+        assert distributed.reduce_mean_([t]) == 20
+        assert torch.equal(t, torch.arange(5.0))
+    finally:
+        dist.destroy_process_group()

@@ -714,3 +714,61 @@ def test_mobilenet_evaluator_lockstep_on_card_matches_cpu(dev, matching):
     assert ops.local_match.launches - l0 == 5
     assert len(res.agree) == 5 and not gate_failures(res), res
     assert res.max_demb < 1e-3
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("n", [2, 3])
+def test_sharded_flat_min_equals_one_launch(dev, mixed, n):
+    """B.3 on query-row shards and on bank shards (M = 3001 and R = 2500
+    padded to multiples of n; one object without bank rows) against one
+    launch over everything: equal bit for bit after the squash (each
+    pair's distance is computed alike; a min is exact); one launch per
+    shard."""
+    from rvos_tpu_torch.parallel import (global_matching_bank_sharded,
+                                         global_matching_context_parallel)
+    g = torch.Generator(device=dev).manual_seed(n)
+    q = torch.relu(torch.randn((3001, 100), generator=g, device=dev))
+    r = torch.relu(torch.randn((2500, 100), generator=g, device=dev))
+    lab = torch.nn.functional.one_hot(
+        torch.randint(0, 3, (2500,), generator=g, device=dev), 4).float()
+    bias = torch.zeros(4, device=dev)
+    qe = q.reshape(3001, 1, 100)
+    want = ops.global_matching_flat(qe, r, lab, bias, mixed=mixed)
+    for fn in (global_matching_context_parallel, global_matching_bank_sharded):
+        n0 = ops.global_flat_min.launches
+        got = fn(qe, r, lab, bias, [dev] * n, mixed=mixed)
+        assert ops.global_flat_min.launches == n0 + n
+        assert torch.equal(got, want), fn.__name__
+
+
+def test_nccl_step_of_one_rank(dev):
+    """One training step at world size 1 over NCCL: the reduce runs (an
+    identity: the gradients the optimizer reads equal the backward's bit
+    for bit) and the loss is the plain step's, within 1e-5 relative (the
+    card's backward is not run-to-run deterministic: atomics in
+    ``index_add_`` and cuDNN's weight gradients)."""
+    from rvos_tpu_torch.configs import tiny_test
+    from rvos_tpu_torch.engine.dp_check import data_parallel_steps
+    from rvos_tpu_torch.engine.train import Trainer
+    from rvos_tpu_torch.parallel.launch import launch
+
+    cfg = tiny_test(DATA_RANDOMCROP=(33, 33), DATA_CURR_SEQ_LEN=2,
+                    MODEL_MULTI_LOCAL_DISTANCE=(1, 2), MODEL_MAX_OBJ_NUM=3)
+    init = Trainer(cfg, device="cpu", seed=0).model.state_dict()
+    rng = np.random.default_rng(0)
+    lab = np.zeros((1, 33, 33), np.int32)
+    lab[:, 4:20, 5:25] = 1
+    batch = {"ref_img": rng.standard_normal((1, 33, 33, 3), np.float32),
+             "prev_img": rng.standard_normal((1, 33, 33, 3), np.float32),
+             "curr_img": rng.standard_normal((2, 1, 33, 33, 3), np.float32),
+             "ref_label": lab, "prev_label": lab,
+             "curr_label": np.stack([lab, lab]),
+             "obj_num": np.array([1], np.int32)}
+    nccl = launch(data_parallel_steps, 1, "nccl", [dev],
+                  (cfg, init, [batch]))[0]["steps"][0]
+    plain = data_parallel_steps(0, 1, dev, cfg, init, [batch])["steps"][0]
+    assert nccl["reduce_bytes"] > 0 and plain["reduce_bytes"] == 0
+    for name, grad in nccl["local_grads"].items():
+        assert torch.equal(nccl["grads"][name], grad), name
+    assert abs(float(nccl["loss"]) - float(plain["loss"])) <= 1e-5 * abs(
+        float(plain["loss"]))

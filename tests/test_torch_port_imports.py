@@ -52,7 +52,10 @@ _STANDALONE = ("data/datasets.py", "data/loader.py", "data/perturb.py",
                "ops/train_matching.py", "cli/train.py",
                "cli/profile_train.py", "utils/davis_metrics.py",
                "utils/eval_zip.py", "utils/meters.py", "utils/logging.py",
-               "utils/image.py", "models/mobilenet.py")
+               "utils/image.py", "models/mobilenet.py",
+               "parallel/__init__.py", "parallel/mesh.py",
+               "parallel/distributed.py", "parallel/context.py",
+               "parallel/launch.py", "engine/dp_check.py")
 
 
 @pytest.mark.parametrize("rel", _STANDALONE)

@@ -29,7 +29,7 @@ Port only: three steps of ``fit`` equal two steps, a checkpoint, an
 automatic resume and one more step; remat equals no remat with dropout
 on; a NaN batch leaves the parameters and the update count unchanged
 while the step counter advances; the training route calls none of the
-kernel wrappers; what is not ported raises.
+kernel wrappers.
 """
 
 import os
@@ -386,14 +386,6 @@ def test_training_route_calls_no_kernel(monkeypatch):
     key = prng.next_step_key(prng.prng_key(prng.TRAIN_SEED))[1]
     m = tr.train_step(_batch(), key)
     assert np.isfinite(float(m["loss"])) and m["applied"] is True
-
-
-@pytest.mark.parametrize("kw,what", [
-    (dict(MESH_MODEL_AXIS=2), "item 8"),
-])
-def test_unported_settings_raise(kw, what):
-    with pytest.raises(NotImplementedError, match=what):
-        Trainer(tiny_test(**dict(KW, **kw)), device="cpu")
 
 
 def test_trainer_needs_a_card_unless_told_cpu():
