@@ -9,11 +9,14 @@ Phases, one line each (a failing phase raises and exits non-zero):
    three CUDA sources in ``rvos_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together) and the count of tensor-core instructions
    (``HMMA``/``HGMMA`` in ``cuobjdump -sass``) in each library: every
-   library must have some;
+   library must have some; and the registers, spill bytes (ptxas) and
+   ``FFMA`` count (SASS) of the float32 kernels of kernels 1 and 3
+   (``seg_map_kernel``, ``flat_match_kernel``), which must have FFMAs;
 2. each kernel against its plain PyTorch version at the shapes of the
    path that runs it, in float32 (max |Δ|/max(|d|, 1) ≤ 1e-4) and mixed
    precision (≤ 4e-3), with its time beside the plain version's, its
-   bound and a library yardstick (the cross term as ``torch.matmul``:
+   bound (float32 rows also as TFLOP/s and share of bound) and a library
+   yardstick (the cross term as ``torch.matmul``:
    ``q @ rᵀ`` for the global kernels, each pixel's K×K window for
    kernel 2): kernel 1 (B.1) at the occupancy bank, kernel 1's uniform
    entry (B.2) at the uniform-quota bank, kernel 3 (B.3) at no cap and
@@ -48,6 +51,12 @@ Phases, one line each (a failing phase raises and exits non-zero):
    481×849 video in chunks of 5 (three graph replays, one capture), with
    the same checks and counts; the profiler must see kernel 1 and kernel
    2 once per variant (six times) on every frame after the first;
+3d. parity matching (``MATCHING_DTYPE="float32"``, the preset's bf16
+   compute) at full width, the graph path on the video's first 12 frames
+   under the occupancy bank (B.1) and at no cap (B.3): the steady time
+   per frame, the float32 global kernel once on every frame after the
+   first and no tensor-core one (the profiler), device busy ms and idle
+   share of the profiled run;
 4. the slice at a small size in parity mode under each bank layout, on
    the card (kernels) against the CPU (plain versions), each frame and
    each bank compaction of the CPU computed from the card's state
@@ -163,9 +172,11 @@ Phases, one line each (a failing phase raises and exits non-zero):
    embedding its own frames (``lockstep_chunks(own_features=True)``),
    through the gate (a variant per device in parity precision).
 
-``python3 chip_smoke.py --only 5`` (or ``--only 6``, ``--only 7``) runs
-that phase alone (phase 7 with its own unsharded runs of phases 3 and
-3c).
+``python3 chip_smoke.py --only 5`` (or ``--only 3d``, ``--only 6``,
+``--only 7``) runs that phase alone (phase 7 with its own unsharded runs
+of phases 3 and 3c); ``--only 2`` runs phases 1 and 2.  Every phase
+reads the package that Python finds first, the one beside the script:
+a copy of the script in another tree measures that tree's package.
 
 Every lock-step comparison with the CPU passes the gate of
 ``engine.lockstep.gate_failures``: masks agree on ≥ 99.9 % of every
@@ -198,13 +209,50 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 
-def _mma_count(lib) -> int:
-    """Tensor-core instructions (HMMA, HGMMA) in a built library's SASS."""
+def _sass(lib) -> str:
+    """A built library's SASS (``cuobjdump -sass``)."""
     from rvos_tpu_torch.ops import _cuda
     tool = str(Path(_cuda._nvcc()).with_name("cuobjdump"))
-    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                         text=True, timeout=120, check=True).stdout
-    return len(re.findall(r"\bH(?:G)?MMA\b", out))
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+
+
+def _mma_count(sass: str) -> int:
+    """Tensor-core instructions (HMMA, HGMMA) in a library's SASS."""
+    return len(re.findall(r"\bH(?:G)?MMA\b", sass))
+
+
+# the float32 (FMA) kernels of the global matching libraries, by their
+# mangled names (not the tensor-core ``*_mma_kernel``s)
+F32_KERNELS = {"global_seg_map": ("seg_map_kernel", r"\d+seg_map_kernelE"),
+               "global_flat_match": ("flat_match_kernel",
+                                     r"\d+flat_match_kernelE")}
+
+
+def f32_kernel_stats(name: str, sass: str, log: str) -> dict:
+    """Registers and spill bytes (the ptxas report ``log``) and FFMA
+    count (``sass``) of library ``name``'s float32 kernel."""
+    kernel, pat = F32_KERNELS[name]
+    out = dict(kernel=kernel, ffma=None, registers=None, spill_stores=None,
+               spill_loads=None)
+    for fn in sass.split("Function : ")[1:]:
+        if re.search(pat, fn.split()[0]):
+            out["ffma"] = len(re.findall(r"\bFFMA\b", fn))
+    cur = None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = m.group(1)
+            continue
+        if cur is None or not re.search(pat, cur):
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out["spill_stores"], out["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out["registers"] = int(m.group(1))
+    return out
 
 
 def _card() -> str:
@@ -270,7 +318,7 @@ def _measure(torch, name, mixed, kernel, plain, library, n_bytes, flops,
         raise AssertionError(f"{name} mixed={mixed}: rel err {rel_err:.3e} "
                              f"> {tol}")
     bound, by = _bound_ms(n_bytes, flops, "bf16" if mixed else "f32", f32_ops)
-    return dict(max_abs_err=abs_err, rel_err=rel_err,
+    return dict(max_abs_err=abs_err, rel_err=rel_err, ops=flops + f32_ops,
                 ms=_time_ms(kernel, reps), plain_ms=_time_ms(plain, plain_reps),
                 bound_ms=bound, bound_by=by,
                 library_ms=_time_ms(library, reps) if library else None,
@@ -419,9 +467,11 @@ COUNTED = ("global_seg_map", "global_seg", "global_flat_min", "local_match")
 PROFILED = {"global_seg_map": r"\bseg_map_(?:mma_)?kernel\b",
             "global_flat_min": r"\bflat_match_(?:mma_)?kernel\b",
             "local_match": r"\blocal_(?:mma|f32)_kernel\b",
-            "dist_prep": r"\bprep::(?:query|bank)_kernel\b",
+            "dist_prep": r"\bprep::(?:query|bank|f32)_kernel\b",
             "local_prep": r"\bprep_kernel\b",
-            "flat_route": r"\bflat_(?:keys|tags)_kernel\b"}
+            "flat_route": r"\bflat_(?:keys|tags)_kernel\b",
+            "f32_global": r"\b(?:seg_map|flat_match)_kernel\b",
+            "mma_global": r"\b(?:seg_map|flat_match)_mma_kernel\b"}
 PROFILED_GLOBAL = {"global_seg_map": "global_seg_map",
                    "global_seg": "global_seg_map",
                    "global_flat_min": "global_flat_min"}
@@ -430,32 +480,46 @@ PROFILED_GLOBAL = {"global_seg_map": "global_seg_map",
 def kernels_per_frame(torch, ev, seq):
     """Stream ``seq`` under ``torch.profiler`` → each profiled kernel's
     count on every frame after the first, in start order, a frame ending
-    at its last kernel-2 launch (one per variant).  Filler kernels close
-    the record (``profile_eval.pad_profile``) and must show in it."""
+    at its last kernel-2 launch (one per variant), and the run's device
+    numbers: busy ms (the device records' durations), the wall ms of the
+    run (the profiler's overhead included) and each profiled kernel's
+    device ms.  Filler kernels close the record
+    (``profile_eval.pad_profile``) and must show in it."""
     from torch.profiler import ProfilerActivity, profile
 
     from rvos_tpu_torch.cli.profile_eval import (FILLER, device_records,
                                                  pad_profile)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
         ev.evaluate_sequence(seq)
         torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
         pad_profile(torch)
-    names = [name for name, _, _ in device_records(prof)]
-    if not any(FILLER in n for n in names):
+    records = device_records(prof)
+    if not any(FILLER in name for name, _, _ in records):
         raise AssertionError("the profiler lost the end of its record")
     n_var = len(ev.variants.flips)
     counts = {k: [0] for k in PROFILED}
+    device_ms = {k: 0.0 for k in PROFILED}
+    busy_us = 0.0
     matches = {}                # kernel name -> the PROFILED keys it matches
-    for name in names:
+    for name, _, us in records:
+        if FILLER in name:
+            continue
+        busy_us += us
         if name not in matches:
             matches[name] = [k for k, pat in PROFILED.items()
                              if re.search(pat, name)]
         for k in matches[name]:
             counts[k][-1] += 1
+            device_ms[k] += us / 1e3
         if counts["local_match"][-1] == n_var:
             for c in counts.values():
                 c.append(0)
-    return {k: c[:-1] for k, c in counts.items() if sum(c)}
+    return ({k: c[:-1] for k, c in counts.items() if sum(c)},
+            dict(busy_ms=busy_us / 1e3, wall_ms=wall_ms,
+                 device_ms={k: v for k, v in device_ms.items() if v}))
 
 
 class _Head:
@@ -525,7 +589,7 @@ def run_video(torch, ops, ev, seq, global_kernel, window,
     per_frame = steady_frame_ms(ends[:hi + 1], video_steps(ev, hi + 1), lo)
     steady_ms = ends[lo - 1].elapsed_time(ends[hi]) / (hi - lo + 1)
     prof_seq = seq if profile_frames is None else _Head(seq, profile_frames)
-    profiled = kernels_per_frame(torch, ev, prof_seq)
+    profiled, dev = kernels_per_frame(torch, ev, prof_seq)
     n_var = len(ev.variants.flips)
     for k in (PROFILED_GLOBAL[global_kernel], "local_match"):
         got = profiled.get(k, [])
@@ -536,7 +600,11 @@ def run_video(torch, ops, ev, seq, global_kernel, window,
                 median_ms=ranked[len(ranked) // 2],
                 p90_ms=ranked[min(len(ranked) - 1, int(0.9 * len(ranked)))],
                 peak_gb=peak_gb, replays=replays, captures=captures,
-                per_frame=profiled)
+                per_frame=profiled,
+                busy_ms=dev["busy_ms"] / len(prof_seq),
+                idle=1.0 - dev["busy_ms"] / dev["wall_ms"],
+                device_ms={k: v / len(prof_seq)
+                           for k, v in dev["device_ms"].items()})
 
 
 def _video_line(r) -> str:
@@ -546,7 +614,65 @@ def _video_line(r) -> str:
             f"captures={r['captures']} replays={r['replays']} "
             f"wall_fps={r['out']['fps']:.2f} launch_counters={r['launches']} "
             f"timing_s={ {k: round(v, 4) for k, v in t.items()} } "
-            f"profiler_kernels_per_frame={r['per_frame']}")
+            f"profiler_kernels_per_frame={r['per_frame']} profiled: device "
+            f"busy {r['busy_ms']:.2f} ms a frame, idle share {r['idle']:.3f}, "
+            f"device ms a frame { {k: round(v, 3) for k, v in r['device_ms'].items()} }")
+
+
+# phase 3d: the layouts it runs and the video's frames it streams
+PARITY_LAYOUTS = ("occupancy", "cap0")
+PARITY_FRAMES = 12
+
+
+def phase3d(torch, ops, card, base=None) -> dict:
+    """Phase 3d: the graph path at full ``resnet101_aocnet`` width with
+    float32 (parity) matching and the preset's bf16 compute, on the
+    occupancy bank (B.1) and at no cap (B.3), the video's first 12 frames
+    each: steady ms a frame (one steady chunk), the float32 global kernel
+    once on every frame after the first and no tensor-core one (the
+    profiler), device busy ms and idle share of the profiled run, and the
+    kernels' device ms a frame.  ``base``: phase 3's weights and video;
+    without them (``--only 3d``) they are made here."""
+    from rvos_tpu_torch.cli.profile_eval import video_steps
+    from rvos_tpu_torch.configs import BANK_LAYOUTS, get_config
+    from rvos_tpu_torch.data import SyntheticEval
+    from rvos_tpu_torch.engine import Evaluator
+    from rvos_tpu_torch.models import AOCNet
+    from rvos_tpu_torch.weights import init_random_
+
+    t_all = time.time()
+    cfg = get_config("resnet101_aocnet")
+    if base is None:
+        model = init_random_(AOCNet(cfg), torch.Generator().manual_seed(0))
+        seq = SyntheticEval(size=(481, 849), n_seqs=1, n_frames=22,
+                            obj_num=3)[0]
+    else:
+        model, seq = base
+    seq = _Head(seq, PARITY_FRAMES)
+    out = {}
+    for name in PARITY_LAYOUTS:
+        t0 = time.time()
+        lcfg = cfg.replace(MATCHING_DTYPE="float32", **BANK_LAYOUTS[name])
+        lmodel = AOCNet(lcfg)
+        lmodel.load_state_dict(model.state_dict())
+        lev = Evaluator(lcfg, lmodel, device="cuda")
+        steps = [st for st in video_steps(lev, len(seq))
+                 if len(st) == lev.chunk_n]
+        window = (steps[1][0], steps[-1][-1])
+        r = run_video(torch, ops, lev, seq, GLOBAL_KERNEL[name], window)
+        f32 = r["per_frame"].get("f32_global", [])
+        if f32 != [1] * (len(seq) - 1) or "mma_global" in r["per_frame"]:
+            raise AssertionError(f"phase 3d {name}: float32 global kernel per "
+                                 f"frame {f32}, profiled {r['per_frame']}")
+        out[name] = r
+        print(f"phase 3d parity matching (MATCHING_DTYPE=float32, bf16 "
+              f"compute) layout {name} resnet101_aocnet 481x849 {len(seq)} "
+              f"frames, graph path, steady frames {window[0]}-{window[1]}: "
+              f"{_video_line(r)} float32 global kernel per frame {f32} took "
+              f"{time.time() - t0:.1f} s [{card}]", flush=True)
+        del lev, lmodel
+    print(f"phase 3d took {time.time() - t_all:.1f} s", flush=True)
+    return out
 
 
 def _own_masks(lock, gate_failures) -> dict:
@@ -1482,63 +1608,47 @@ def phase7(torch, ops, card, base=None) -> dict:
     return dict(a=a, b=b, bk=bk, c=c)
 
 
-def main(argv=None) -> int:
-    import argparse
-    p = argparse.ArgumentParser(description="smoke run of the port on a GPU")
-    p.add_argument("--only", choices=["5", "6", "7"], default=None,
-                   help="run phase 5 (training), phase 6 (bf16 training, "
-                        "MobileNet) or phase 7 (several GPUs) alone")
-    args = p.parse_args(argv)
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device visible", file=sys.stderr)
-        return 2
-    from rvos_tpu_torch import ops
-    from rvos_tpu_torch.cli.profile_eval import video_steps
-    from rvos_tpu_torch.configs import BANK_LAYOUTS, get_config
-    from rvos_tpu_torch.data import SyntheticEval
-    from rvos_tpu_torch.engine import Evaluator
-    from rvos_tpu_torch.engine.lockstep import (WHOLE_VIDEO_LAYOUTS,
-                                                gate_failures,
-                                                lockstep_chunks,
-                                                lockstep_masks, parity_config,
-                                                parity_scores,
-                                                whole_video_agreement)
-    from rvos_tpu_torch.models import AOCNet
+def phase1(torch, card) -> dict:
+    """Phase 1: the build of the three CUDA sources (one ``nvcc`` each,
+    started together), the ptxas report, the tensor-core instructions of
+    each library (it must have some) and the registers, spill bytes and
+    FFMA count of the float32 kernels of kernels 1 and 3 (they must have
+    FFMAs)."""
     from rvos_tpu_torch.ops import _cuda
-    from rvos_tpu_torch.ops.prng import kmeans_init_scores
-    from rvos_tpu_torch.weights import init_random_
-
-    # ---- phase 1: the card and the build
-    card = _card()
-    if args.only:
-        {"5": phase5, "6": phase6, "7": phase7}[args.only](torch, ops, card)
-        print(card)
-        print(json.dumps({f"phase{args.only}_only": True}))
-        return 0
     t0 = time.time()
     paths = _cuda.build(["global_seg_map", "local_match", "global_flat_match"])
     built_s = time.time() - t0
-    ptxas = []
+    ptxas, logs = [], {}
     for name in paths:
         log = (_cuda.BUILD_DIR / f"{name}.log")
-        if log.exists():
-            ptxas += [ln.strip() for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln
-                      or "Compiling entry" in ln]
-    mma = {name: _mma_count(path) for name, path in paths.items()}
+        logs[name] = log.read_text() if log.exists() else ""
+        ptxas += [ln.strip() for ln in logs[name].splitlines()
+                  if "registers" in ln or "spill" in ln
+                  or "Compiling entry" in ln]
+    sass = {name: _sass(path) for name, path in paths.items()}
+    mma = {name: _mma_count(sass[name]) for name in paths}
+    f32 = {name: f32_kernel_stats(name, sass[name], logs[name])
+           for name in F32_KERNELS}
     print(f"phase 1 card: {card} | {torch.cuda.get_device_name(0)} | "
           f"torch {torch.__version__} cuda {torch.version.cuda} | built "
           f"{len(paths)} kernels in {built_s:.1f} s | HMMA/HGMMA in SASS "
           f"{mma} | " + " ; ".join(ptxas), flush=True)
+    print(f"phase 1 float32 kernels (registers, spill bytes from ptxas, FFMA "
+          f"in cuobjdump -sass): {f32}", flush=True)
     for name in paths:
         if not mma[name]:
             raise AssertionError(f"{name}: no tensor-core instruction in SASS")
+    for name, st in f32.items():
+        if not st["ffma"]:
+            raise AssertionError(f"{name}: no FFMA in {st['kernel']}: {st}")
+    return f32
 
-    # ---- phase 2: kernels vs plain versions at their paths' shapes
+
+def phase2(torch, ops, card, cfg) -> dict:
+    """Phase 2: every kernel against its plain version at its path's
+    shapes, timed beside its bound, the plain version and the library
+    call; float32 rows also as TFLOP/s and share of bound."""
     t0 = time.time()
-    cfg = get_config("resnet101_aocnet")
-    frame_hw = (481, 849)
     h4, w4 = 121, 213                 # ResNet stride-4 grid of 481×849
     shapes = dict(m=h4 * w4, c=cfg.MODEL_SEMANTIC_EMBEDDING_DIM,
                   o=cfg.MODEL_MAX_OBJ_NUM, slots=cfg.TEST_BANK_CAPACITY,
@@ -1559,12 +1669,62 @@ def main(argv=None) -> int:
         res[("global_mf", mixed)] = check_global(torch, ops, mf_shapes, mixed)
         res[("local_mf", mixed)] = check_local(torch, ops, mf_shapes, mixed)
     for (k, mixed), r in res.items():
+        rate = (f" TFLOP/s={r['ops'] / r['ms'] / 1e9:.2f} "
+                f"share_of_bound={r['bound_ms'] / r['ms']:.3f}"
+                if not mixed else "")
         print(f"phase 2 {k} {'mixed' if mixed else 'f32'} shape={r['shape']}: "
               f"max_abs_err={r['max_abs_err']:.3e} rel={r['rel_err']:.3e} "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}){rate} "
               f"library_ms={r['library_ms']} [{card}]", flush=True)
     print(f"phase 2 took {time.time() - t0:.1f} s", flush=True)
+    return res
+
+
+def main(argv=None) -> int:
+    import argparse
+    p = argparse.ArgumentParser(description="smoke run of the port on a GPU")
+    p.add_argument("--only", choices=["2", "3d", "5", "6", "7"], default=None,
+                   help="run phases 1-2 (the build and the kernels), phase "
+                        "3d (float32 matching at full width), phase 5 "
+                        "(training), phase 6 (bf16 training, MobileNet) or "
+                        "phase 7 (several GPUs) alone")
+    args = p.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    from rvos_tpu_torch import ops
+    from rvos_tpu_torch.cli.profile_eval import video_steps
+    from rvos_tpu_torch.configs import BANK_LAYOUTS, get_config
+    from rvos_tpu_torch.data import SyntheticEval
+    from rvos_tpu_torch.engine import Evaluator
+    from rvos_tpu_torch.engine.lockstep import (WHOLE_VIDEO_LAYOUTS,
+                                                gate_failures,
+                                                lockstep_chunks,
+                                                lockstep_masks, parity_config,
+                                                parity_scores,
+                                                whole_video_agreement)
+    from rvos_tpu_torch.models import AOCNet
+    from rvos_tpu_torch.ops.prng import kmeans_init_scores
+    from rvos_tpu_torch.weights import init_random_
+
+    # ---- phase 1: the card and the build
+    card = _card()
+    if args.only == "2":
+        phase1(torch, card)
+        phase2(torch, ops, card, get_config("resnet101_aocnet"))
+    elif args.only:
+        {"3d": phase3d, "5": phase5, "6": phase6,
+         "7": phase7}[args.only](torch, ops, card)
+    if args.only:
+        print(card)
+        print(json.dumps({f"phase{args.only}_only": True}))
+        return 0
+    phase1(torch, card)
+    cfg = get_config("resnet101_aocnet")
+    frame_hw = (481, 849)
+    res = phase2(torch, ops, card, cfg)
 
     # ---- phase 3: the main path, graph replays then frame by frame; the
     # default k-means draws first, one block as the evaluator draws it
@@ -1656,6 +1816,9 @@ def main(argv=None) -> int:
         raise AssertionError(f"{mf['replays']} replays and {mf['captures']} "
                              f"captures for {len(msteps)} full chunks")
     del mev, mmodel
+
+    # ---- phase 3d: float32 (parity) matching at full width
+    parity = phase3d(torch, ops, card, (model, seq))
 
     # ---- phase 4: small-size reference check, card vs CPU, parity
     # setting; float32 matching, then mixed matching (tensor-core paths);
@@ -1801,6 +1964,11 @@ def main(argv=None) -> int:
             "f32_max_abs_err": rp["max_abs_err"], "f32_ms": rp["ms"],
             "f32_plain_ms": rp["plain_ms"], "f32_bound_ms": rp["bound_ms"],
             "f32_library_ms": rp["library_ms"]}
+        layout = {"global": "occupancy", "flat": "cap0"}.get(key)
+        if layout:
+            entry["f32_parity_frame_ms"] = parity[layout]["steady_ms"]
+            entry["f32_parity_per_frame"] = parity[layout]["per_frame"][
+                "f32_global"]
         if key in ("global", "local"):
             rm, rmp = res[(key + "_mf", True)], res[(key + "_mf", False)]
             entry.update({

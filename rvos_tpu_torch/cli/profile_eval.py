@@ -3,11 +3,13 @@ card (``torch.profiler``), chunked (CUDA graph replays) or frame by frame.
 
     python -m rvos_tpu_torch.cli.profile_eval [--frames 26] [--layout cap0]
         [--frame_chunk 5] [--size 481 849] [--ms 1.0 1.15 1.3 --flip]
-        [--backbone mobilenet] [--trace trace.json]
+        [--backbone mobilenet] [--matching_dtype float32] [--trace trace.json]
 
 Runs the main path of ``chip_smoke.py`` (the ``resnet101_aocnet``
 preset, random weights from a seed, a 3-object synthetic video; with
-``--backbone mobilenet`` the MobileNetV2 backbone) under
+``--backbone mobilenet`` the MobileNetV2 backbone; with
+``--matching_dtype float32`` parity matching, the float32 routes of the
+global kernels) under
 bank layout ``--layout`` (``configs.BANK_LAYOUTS``) with
 ``TEST_FRAME_CHUNK`` set to ``--frame_chunk`` (default: the preset's;
 1 runs frame by frame), and with ``--ms``/``--flip`` the multi-scale
@@ -157,6 +159,9 @@ def main(argv=None):
     p.add_argument("--trace", default="")
     p.add_argument("--backbone", default="resnet",
                    choices=["resnet", "mobilenet"], help="MODEL_BACKBONE")
+    p.add_argument("--matching_dtype", default="",
+                   choices=["", "float32", "mixed", "bfloat16"],
+                   help="MATCHING_DTYPE (default: the preset's)")
     args = p.parse_args(argv)
 
     import torch
@@ -172,6 +177,8 @@ def main(argv=None):
                      **BANK_LAYOUTS[args.layout])
     if args.frame_chunk > 0:
         cfg = cfg.replace(TEST_FRAME_CHUNK=args.frame_chunk)
+    if args.matching_dtype:
+        cfg = cfg.replace(MATCHING_DTYPE=args.matching_dtype)
     if args.flip or tuple(args.ms) != (1.0,):
         cfg = cfg.replace(TEST_FLIP=args.flip, TEST_MULTISCALE=tuple(args.ms),
                           TEST_MAX_SIZE=800.0)
@@ -182,6 +189,7 @@ def main(argv=None):
                           text=True, timeout=60, check=True).stdout.strip()
     first = max(ev.chunk_n, cfg.MEM_EVERY, 1) + 1    # first steady frame
     print(f"card: {card} | {args.backbone} | layout {args.layout} | "
+          f"matching {cfg.MATCHING_DTYPE} | "
           f"frame chunk {ev.chunk_n} "
           f"| variants {len(ev.variants.flips)} (scales {cfg.TEST_MULTISCALE}, "
           f"flip {cfg.TEST_FLIP}) | steady frames {first}-{args.frames - 1}")

@@ -29,11 +29,30 @@
 //        bank steps and, when there is more than one, the CTAs combine
 //        their results with an order-preserving float atomicMin.
 //
-// simt:: float32 (parity) mode, on the float32 FMA units, never TF32.
-//        Operands arrive transposed (qT [C, M], rT [C, R]); a CTA of 256
-//        threads keeps 64 query rows in shared memory and each thread owns
-//        a 4x4 micro-tile of each 64x64 distance block (16 FMAs per two
-//        16-byte shared loads).
+// ffma:: float32 (parity) mode, on the float32 FMA units, never TF32: the
+//        arithmetic of the JAX package's Precision.HIGHEST.  What bounds
+//        it is the FFMA rate (67 TFLOP/s on an H100 SXM), so the design
+//        keeps every other unit below it.  One launch of prep::f32_kernel
+//        per operand brings it in, in k-major tiles: the query as
+//        [M / 128][Cp][128] and the bank as -2 r [rows / 64][Cp][64] (Cp =
+//        C rounded up to 4, zero-filled; -2 r is exact), with the float32
+//        norms q2 and r2 (+ bias, +inf on padding rows).  A CTA of 4 warps
+//        holds 128 query rows in shared memory for the whole walk and
+//        streams 64-row bank steps through a 2-stage cp.async ring of
+//        16-byte copies, so step s+1 loads while step s computes.  Each
+//        thread owns an 8 x 8 register tile (rows split 4 + 4 sixteen
+//        apart, columns 4 + 4 thirty-two apart): per channel two float4
+//        reads of the query tile and two of the bank tile feed 64 FMAs, and
+//        a warp's reads of one float4 slot touch 4 or 8 adjacent slots, so
+//        they broadcast without bank conflicts; the next channel's
+//        fragments load while this one's FMAs run.  The accumulators start
+//        at r2, so each pair ends as d' = ||r||^2 - 2 q.r, the chain of
+//        FMAs running over the channels in order whatever the row's place:
+//        a pair's value does not depend on the tile, split or shard its row
+//        lands in.  The epilogues are the tensor-core ones: one min per
+//        pair, ||q||^2 added once per row when a run is folded.  At C = 100
+//        and O = 11 two CTAs fit an SM (about 110 KB of shared memory
+//        each).  The grid splits the bank over CTAs as tc:: does.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,61 +74,32 @@ __device__ __forceinline__ void atomic_min_f32(float* p, float v) {
     atomicMax(reinterpret_cast<unsigned*>(p), __float_as_uint(v));
 }
 
-// ------------------------------------------------------------------ SIMT
-namespace simt {
-
-constexpr int BM = 64;        // query rows per CTA
-constexpr int BN = 64;        // bank rows per step
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 distances each
-
-// qs[c][j] = qT[c][m0 + j], 0 past M
-__device__ __forceinline__ void load_query(float* qs, const float* qT, int M,
-                                           int C, int m0, int tid) {
-  for (int i = tid; i < C * BM; i += THREADS) {
-    const int c = i / BM, j = i - c * BM, m = m0 + j;
-    qs[i] = (m < M) ? qT[(size_t)c * M + m] : 0.f;
-  }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// rs[c][j] = rT[c][n0 + j], 0 past R
-__device__ __forceinline__ void load_rows(float* rs, const float* rT, int R,
-                                          int C, int n0, int tid) {
-  for (int i = tid; i < C * BN; i += THREADS) {
-    const int c = i / BN, j = i - c * BN, n = n0 + j;
-    rs[i] = (n < R) ? rT[(size_t)c * R + n] : 0.f;
-  }
+// 16 bytes through L1 (.ca): the CTAs resident on an SM often walk the
+// same bank split at about the same pace, so a bank tile read by one is
+// often still in L1 for the next; through L2 only (.cg) the walk is bound by L2
+// bandwidth (64 MACs per byte of bank read per CTA step)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
 }
 
-// acc[i][j] = sum over c of qs[c][ty*4 + i] * rs[c][tx*4 + j]
-__device__ __forceinline__ void cross(const float* qs, const float* rs, int C,
-                                      int tx, int ty, float acc[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < C; ++c) {
-    const float4 a = *reinterpret_cast<const float4*>(qs + c * BM + ty * 4);
-    const float4 b = *reinterpret_cast<const float4*>(rs + c * BN + tx * 4);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src));
 }
 
-// min over the 16 threads of a row group, one half-warp: every lane ends
-// with the min
-__device__ __forceinline__ float half_warp_min(float v) {
-  v = fminf(v, __shfl_xor_sync(FULL_MASK, v, 8));
-  v = fminf(v, __shfl_xor_sync(FULL_MASK, v, 4));
-  v = fminf(v, __shfl_xor_sync(FULL_MASK, v, 2));
-  return fminf(v, __shfl_xor_sync(FULL_MASK, v, 1));
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-}  // namespace simt
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // ---------------------------------------------------------- tensor cores
 namespace tc {
@@ -138,33 +128,6 @@ __host__ __device__ constexpr int stage_bytes(int cp) {
 
 __host__ __device__ constexpr int ring_bytes(int cp) {
   return STAGES * stage_bytes(cp);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes through L1 (.ca): the CTAs resident on an SM often walk the
-// same bank split at about the same pace, so a bank tile read by one is
-// often still in L1 for the next; through L2 only (.cg) the walk is bound by L2
-// bandwidth (64 MACs per byte of bank read per CTA step)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The shared-memory matrix descriptor of a K-major bf16 operand without
@@ -399,12 +362,217 @@ __device__ __forceinline__ void split_range(int n_steps, int steps_per_split,
 
 }  // namespace tc
 
-// --------------------------------------------- operand preparation (mixed)
-// One warp per row: a float32 row of C values becomes a bf16 row of cp
-// values (scaled, zero past C) and its float32 squared norm (of the
-// unscaled, unrounded values).  One launch per operand replaces the
-// several PyTorch passes (norms, rounding, padding, gathers) that would
-// otherwise cost more host time per call than the kernel costs the card.
+// --------------------------------------------------- float32 FMA units
+namespace ffma {
+
+constexpr int BM = 128;       // query rows per CTA
+constexpr int BN = 64;        // bank rows per step
+constexpr int THREADS = 128;  // 4 warps of 4 x 8 threads, 8 x 8 pairs each
+constexpr int STAGES = 2;     // cp.async ring depth
+constexpr int MIN_CTAS = 2;   // resident CTAs per SM (<= 255 registers)
+constexpr int TM = 8;         // query rows per thread
+constexpr int TN = 8;         // bank rows per thread
+
+typedef float Block[TM][TN];  // a thread's d' of one step
+
+// one ring stage: the -2 r tile [cp][BN], r2 [BN] and the step key (in a
+// slot of 16 bytes), in floats
+__host__ __device__ constexpr int stage_floats(int cp) {
+  return cp * BN + BN + 4;
+}
+
+// shared memory ahead of a kernel's own epilogue buffers: the query tile
+// [cp][BM], its norms [BM] and the ring, in floats
+__host__ __device__ constexpr int main_floats(int cp) {
+  return cp * BM + BM + STAGES * stage_floats(cp);
+}
+
+// 16 bytes through L2 only: an SM's L1 is what its shared memory leaves
+__device__ __forceinline__ void cp_async16_cg(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+
+// The thread's place: warp w holds CTA rows 32 w + [0, 32); lane (tm, tn)
+// = (lane / 8, lane % 8) holds rows 32 w + 16 h + 4 tm + [0, 4) (h = 0,
+// 1) and step columns 32 h + 4 tn + [0, 4).  Register row i is h = i / 4.
+__device__ __forceinline__ int local_row(int warp, int tm, int i) {
+  return warp * 32 + (i >> 2) * 16 + tm * 4 + (i & 3);
+}
+
+// Start the copy of the CTA's query tile (qT [tiles][cp][BM], q2 padded to
+// tiles * BM) into qs [cp][BM] and q2s [BM]; the walk's first commit
+// covers it.
+__device__ __forceinline__ void load_query(float* qs, float* q2s,
+                                           const float* qT, const float* q2,
+                                           int cp, int tid) {
+  const float* src = qT + (size_t)blockIdx.x * cp * BM;
+  const uint32_t base = smem_addr(qs);
+  for (int i = tid; i < cp * BM / 4; i += THREADS)
+    cp_async16_cg(base + i * 16, src + i * 4);
+  if (tid < BM / 4)
+    cp_async16_cg(smem_addr(q2s) + tid * 16,
+                  q2 + (size_t)blockIdx.x * BM + tid * 4);
+}
+
+// Start the copy of bank step s (rb [n_steps][cp][BN], r2 [n_steps * BN])
+// and its key key[s / key_div] into a ring stage.
+__device__ __forceinline__ void issue_step(float* stage, const float* rb,
+                                           const float* r2, const int* key,
+                                           int key_div, int cp, int s,
+                                           int tid) {
+  const uint32_t base = smem_addr(stage);
+  const float* src = rb + (size_t)s * cp * BN;
+  for (int i = tid; i < cp * BN / 4; i += THREADS)
+    cp_async16_cg(base + i * 16, src + i * 4);
+  if (tid < BN / 4)
+    cp_async16_cg(base + (cp * BN + tid * 4) * 4, r2 + (size_t)s * BN + tid * 4);
+  else if (tid == BN / 4)
+    cp_async4(base + (cp * BN + BN) * 4, key + s / key_div);
+}
+
+// the thread's fragments of one channel: query rows from qa, bank columns
+// from rb (both already offset to the thread's first slot)
+__device__ __forceinline__ void load_frag(float a[TM], float b[TN],
+                                          const float* qa, const float* rb) {
+  const float4 a0 = *reinterpret_cast<const float4*>(qa);
+  const float4 a1 = *reinterpret_cast<const float4*>(qa + 16);
+  const float4 b0 = *reinterpret_cast<const float4*>(rb);
+  const float4 b1 = *reinterpret_cast<const float4*>(rb + 32);
+  a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+  a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+  b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+  b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+}
+
+// d[i][j] = r2 of column j, then + q . (-2 r) over the channels in order:
+// d' = ||r||^2 - 2 q.r (see the header).  cp % 4 == 0; the fragments of
+// channel c + 1 load while channel c's 64 FMAs run.
+__device__ __forceinline__ void cross(Block d, const float* qs,
+                                      const float* st, int cp, int warp,
+                                      int tm, int tn) {
+  const float* r2s = st + cp * BN;
+  const float4 s0 = *reinterpret_cast<const float4*>(r2s + tn * 4);
+  const float4 s1 = *reinterpret_cast<const float4*>(r2s + 32 + tn * 4);
+  const float rv[TN] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) d[i][j] = rv[j];
+  const float* qa = qs + warp * 32 + tm * 4;
+  const float* rb = st + tn * 4;
+  float a[2][TM], b[2][TN];
+  load_frag(a[0], b[0], qa, rb);
+  for (int c = 0; c < cp; c += 4) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int nx = c + u + 1;
+      if (u < 3 || nx < cp)
+        load_frag(a[(u + 1) & 1], b[(u + 1) & 1], qa + nx * BM, rb + nx * BN);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          d[i][j] = fmaf(a[u & 1][i], b[u & 1][j], d[i][j]);
+    }
+  }
+}
+
+// run[i] = min(run[i], min over the thread's columns of row i)
+__device__ __forceinline__ void row_min(float run[TM], Block d) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) run[i] = fminf(run[i], d[i][j]);
+}
+
+// min over the 8 lanes that share a row (the same tm): every lane ends
+// with the min
+__device__ __forceinline__ float oct_min(float v) {
+  v = fminf(v, __shfl_xor_sync(FULL_MASK, v, 1));
+  v = fminf(v, __shfl_xor_sync(FULL_MASK, v, 2));
+  return fminf(v, __shfl_xor_sync(FULL_MASK, v, 4));
+}
+
+// The walk of one CTA over bank steps [s_begin, s_end) (at least one):
+// for each step, once its tile has landed, epi(s, key, d) gets the step's
+// key and the thread's 8 x 8 block d' (see cross).  Every thread of the
+// CTA calls it, so an epilogue may __syncthreads().  The query tile's
+// copies (load_query) must have been started.
+template <class Epi>
+__device__ __forceinline__ void walk(float* ring, const float* qs,
+                                     const float* rb, const float* r2,
+                                     const int* key, int key_div, int cp,
+                                     int s_begin, int s_end, int tid,
+                                     Epi&& epi) {
+  const int sf = stage_floats(cp);
+  const int warp = tid >> 5, tm = (tid & 31) >> 3, tn = tid & 7;
+  const int n = s_end - s_begin;
+  issue_step(ring, rb, r2, key, key_div, cp, s_begin, tid);
+  cp_async_commit();
+  for (int s = 0; s < n; ++s) {
+    cp_async_wait<0>();  // step s (and the query tile) landed: this thread's
+    __syncthreads();     // ... everyone's, and step s-1 is done
+    if (s + 1 < n)
+      issue_step(ring + ((s + 1) & 1) * sf, rb, r2, key, key_div, cp,
+                 s_begin + s + 1, tid);
+    cp_async_commit();
+    const float* st = ring + (s & 1) * sf;
+    const int k = *reinterpret_cast<const int*>(st + cp * BN + BN);
+    Block d;
+    cross(d, qs, st, cp, warp, tm, tn);
+    epi(s_begin + s, k, d);
+  }
+  cp_async_wait<0>();
+}
+
+// Write the CTA's [BM, O] result val(local row, o) for rows m < M,
+// coalesced: a plain store when the grid has one bank split, an atomic
+// min into +inf otherwise.  The caller has synchronised the CTA.
+template <class Val>
+__device__ __forceinline__ void write_out(float* out, int M, int O, int tid,
+                                          Val&& val) {
+  const bool split = gridDim.y > 1;
+  const int m0 = blockIdx.x * BM;
+  for (int k = tid; k < BM * O; k += THREADS) {
+    const int lr = k / O, o = k - lr * O, m = m0 + lr;
+    if (m >= M) break;
+    const float v = val(lr, o);
+    if (split)
+      atomic_min_f32(out + (size_t)m * O + o, v);
+    else
+      out[(size_t)m * O + o] = v;
+  }
+}
+
+// Allow kernel smem bytes of dynamic shared memory; then, for residency,
+// the CTAs of it resident per SM (a negative CUDA error on failure).
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <class Kernel>
+inline int residency(Kernel kernel, size_t smem) {
+  int n = 0;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, THREADS,
+                                                      smem);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+}  // namespace ffma
+
+// --------------------------------------------- operand preparation
+// Mixed mode, one warp per row: a float32 row of C values becomes a bf16
+// row of cp values (scaled, zero past C) and its float32 squared norm (of
+// the unscaled, unrounded values).  Float32 mode (f32_kernel): 64 rows per
+// CTA, turned k-major through shared memory.  One launch per operand
+// replaces the several PyTorch passes (norms, rounding, padding, gathers,
+// transposes) that would otherwise cost more host time per call than the
+// kernel costs the card.
 namespace prep {
 
 constexpr int WARPS = 8;
@@ -468,6 +636,59 @@ bank_kernel(const float* __restrict__ r, const long long* __restrict__ perm,
     for (int o = lane; o < O; o += 32) labs[(size_t)n * O + o] = lab[src * O + o];
 }
 
+
+// Float32 rows [64 b, 64 b + 64) of an operand into the k-major tiles of
+// ffma::, tile rows to a tile (BM for the query, BN for the bank): row n <
+// R, from source row perm[n] (n without perm), goes to dst[(n / tile) *
+// cp * tile + c * tile + n % tile] = scale * src[c] (0 for C <= c < cp);
+// norms[n] = ||src||^2 (+ bias[src] when given), labs[n] = lab[src] and
+// out[n] = +inf (each when given); rows R <= n: zero, norm pad_norm.  A
+// row's norm is the mixed kernels' (lane-strided sums, then a butterfly):
+// it depends only on the row.
+constexpr int F32_ROWS = 64;
+constexpr int F32_MAX_CP = 128;
+
+__global__ void __launch_bounds__(THREADS)
+f32_kernel(const float* __restrict__ src, const long long* __restrict__ perm,
+           const float* __restrict__ bias, float scale,
+           float* __restrict__ dst, float* __restrict__ norms,
+           const float* __restrict__ lab, float* __restrict__ labs,
+           float* __restrict__ out, int R, int C, int cp, int tile, int O,
+           float pad_norm) {
+  __shared__ float t[F32_MAX_CP][F32_ROWS + 1];  // [c][row], padded: no
+                                                 // bank conflicts either way
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int n0 = blockIdx.x * F32_ROWS;
+  for (int r = tid >> 5; r < F32_ROWS; r += WARPS) {
+    const int n = n0 + r;
+    if (n >= R) {
+      for (int c = lane; c < cp; c += 32) t[c][r] = 0.f;
+      if (lane == 0) norms[n] = pad_norm;
+      continue;
+    }
+    const size_t sr = perm ? (size_t)perm[n] : (size_t)n;
+    const float* row = src + sr * C;
+    float s = 0.f;
+    for (int c = lane; c < cp; c += 32) {
+      const float v = c < C ? row[c] : 0.f;
+      s = fmaf(v, v, s);
+      t[c][r] = scale * v;
+    }
+    s = warp_sum(s);
+    if (lane == 0) norms[n] = bias ? s + bias[sr] : s;
+    for (int o = lane; o < O; o += 32) {
+      if (labs) labs[(size_t)n * O + o] = lab[sr * O + o];
+      if (out) out[(size_t)n * O + o] = INFINITY;
+    }
+  }
+  __syncthreads();
+  float* base = dst + (size_t)(n0 / tile) * cp * tile + n0 % tile;
+  for (int i = tid; i < cp * F32_ROWS; i += THREADS) {
+    const int c = i / F32_ROWS, j = i - c * F32_ROWS;
+    base[(size_t)c * tile + j] = t[c][j];
+  }
+}
+
 }  // namespace prep
 }  // namespace dist_tile
 
@@ -492,5 +713,22 @@ extern "C" int dist_prep_bank(const float* r, const long long* perm,
                 (cudaStream_t)stream>>>(r, perm, bias, scale,
                                         static_cast<uint16_t*>(rb), r2, lab,
                                         labs, R, rows, C, cp, O, pad_norm);
+  return (int)cudaGetLastError();
+}
+
+// Float32 mode: rows R (real) of rows (a multiple of 64) into ffma::'s
+// k-major tiles of tile rows (128 query, 64 bank); see prep::f32_kernel.
+extern "C" int dist_prep_f32(const float* src, const long long* perm,
+                             const float* bias, float scale, float* dst,
+                             float* norms, const float* lab, float* labs,
+                             float* out, int R, int rows, int C, int cp,
+                             int tile, int O, float pad_norm, void* stream) {
+  using namespace dist_tile::prep;
+  if (rows % F32_ROWS || tile % F32_ROWS || cp % 4 || cp > F32_MAX_CP ||
+      cp < C)
+    return (int)cudaErrorInvalidValue;
+  f32_kernel<<<rows / F32_ROWS, THREADS, 0, (cudaStream_t)stream>>>(
+      src, perm, bias, scale, dst, norms, lab, labs, out, R, C, cp, tile, O,
+      pad_norm);
   return (int)cudaGetLastError();
 }

@@ -40,13 +40,12 @@
 // does not depend on the bank's row order.  The bank axis is split over
 // several CTAs per query tile, combined by an atomic min.
 //
-// Float32 (parity) mode (flat_match_kernel): the SIMT float32 FMA path of
-// dist_tile.cuh (never TF32) with the general penalised min: each
-// 64-row step brings its [OB, 64] penalty slice (penT = (1 - lab^T) * 5e4)
-// into shared memory and each thread keeps run[4][OB] per (row, object)
-// in registers, OB the object count rounded up to 16 or 32 as a template
-// parameter so that every index into run is a compile-time constant;
-// objects past O read a +inf penalty and are never written.
+// Float32 (parity) mode (flat_match_kernel): the same one-hot route over
+// the same sorted bank and step tags, on the float32 FMA units through
+// dist_tile.cuh's ffma:: mainloop (never TF32; 8 x 8 register tiles,
+// accumulators seeded with ||r||^2), so a pure step costs one min per pair
+// there too, and the result is order-independent and the general
+// formula's as in mixed mode.  The bank axis is split the same way.
 #include "dist_tile.cuh"
 
 namespace {
@@ -56,94 +55,104 @@ constexpr float PEN = 5e4f;
 constexpr int MIXED = -2;   // step tag of a mixed or general step
 constexpr int NONE = -3;    // no step folded yet
 
-template <int OB>
-__global__ void __launch_bounds__(simt::THREADS)
+// Float32 mode: the one-hot route of flat_match_mma_kernel on the FMA
+// units (dist_tile.cuh's ffma::), over the same sorted bank and step tags.
+// A and B live in shared memory ([128] and [128, O]); a thread's running
+// mins fold across the 8 lanes of a row.
+__global__ void __launch_bounds__(ffma::THREADS, ffma::MIN_CTAS)
 flat_match_kernel(const float* __restrict__ qT, const float* __restrict__ q2,
-                  const float* __restrict__ rT, const float* __restrict__ r2,
-                  const float* __restrict__ penT, float* __restrict__ out,
-                  int M, int R, int C, int O) {
-  using namespace simt;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;            // [C][BM]
-  float* rs = qs + C * BM;     // [C][BN]
-  float* rn = rs + C * BN;     // [BN]
-  float* ps = rn + BN;         // [OB][BN]
+                  const float* __restrict__ rb, const float* __restrict__ r2,
+                  const float* __restrict__ lab,
+                  const int* __restrict__ step_tag, float* __restrict__ out,
+                  int M, int R, int cp, int n_steps, int O,
+                  int steps_per_split) {
+  using namespace ffma;
+  extern __shared__ __align__(16) float smem_f[];
+  float* qs = smem_f;                       // [cp][BM]
+  float* q2s = qs + cp * BM;                // [BM]
+  float* ring = q2s + BM;                   // STAGES stages
+  float* bs = smem_f + main_floats(cp);     // [BM][O]: B
+  float* as = bs + BM * O;                  // [BM]: A
+  float* pen = as + BM;                     // [O][BN]: a mixed step's
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int m0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tm = (tid & 31) >> 3, tn = tid & 7;
+  for (int i = tid; i < BM * O + BM; i += THREADS) bs[i] = INFINITY;
+  load_query(qs, q2s, qT, q2, cp, tid);
 
-  load_query(qs, qT, M, C, m0, tid);
-  float qn[4];
+  float run[TM];  // running mins of d' over a run of pure steps
+  int cur = NONE;
+  auto reset = [&]() {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    qn[i] = (m < M) ? q2[m] : 0.f;
-  }
-  float run[4][OB];
+    for (int i = 0; i < TM; ++i) run[i] = INFINITY;
+  };
+  // fold the running mins of a pure run of steps into A and B[cur] (lane
+  // tn writes register row tn); fl(||q||^2 + min d') = min fl(||q||^2 +
+  // d'), rounding being monotone
+  auto flush = [&]() {
+    if (cur >= -1 && cur < O) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int o = 0; o < OB; ++o) run[i][o] = INFINITY;
-
-  for (int n0 = 0; n0 < R; n0 += BN) {
-    __syncthreads();  // the previous step's readers are done with rs, ps
-    load_rows(rs, rT, R, C, n0, tid);
-    if (tid < BN) rn[tid] = (n0 + tid < R) ? r2[n0 + tid] : 0.f;
-    for (int i = tid; i < OB * BN; i += THREADS) {
-      const int o = i / BN, j = i - o * BN, n = n0 + j;
-      ps[i] = (o < O && n < R) ? penT[(size_t)o * R + n] : INFINITY;
+      for (int i = 0; i < TM; ++i) {
+        const int lr = local_row(warp, tm, i);
+        const float v = q2s[lr] + oct_min(run[i]);
+        if (tn == i) {
+          as[lr] = fminf(as[lr], v);
+          if (cur >= 0) bs[lr * O + cur] = fminf(bs[lr * O + cur], v);
+        }
+      }
+    }
+    reset();
+  };
+  // a mixed step: the general penalised min over its 64 rows, into B; as
+  // in the tensor-core kernel, (||q||^2 + d') + penalty per pair
+  auto mixed = [&](int s, Block& d) {
+    __syncthreads();  // the previous mixed step's readers are done with pen
+    for (int i = tid; i < O * BN; i += THREADS) {
+      const int o = i / BN, j = i - o * BN, n = s * BN + j;
+      pen[i] = (n < R) ? (1.f - lab[(size_t)n * O + o]) * PEN : 0.f;
     }
     __syncthreads();
-
-    float acc[4][4];
-    cross(qs, rs, C, tx, ty, acc);
-    const float4 r4 = *reinterpret_cast<const float4*>(rn + tx * 4);
-    const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
+    float qn[TM];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < TM; ++i) qn[i] = q2s[local_row(warp, tm, i)];
+    for (int o = 0; o < O; ++o) {
+      const float4 p0 = *reinterpret_cast<const float4*>(pen + o * BN + tn * 4);
+      const float4 p1 =
+          *reinterpret_cast<const float4*>(pen + o * BN + 32 + tn * 4);
+      const float pv[TN] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = qn[i] + rv[j] - 2.f * acc[i][j];
+      for (int i = 0; i < TM; ++i) {
+        float v = INFINITY;
 #pragma unroll
-    for (int o = 0; o < OB; ++o) {
-      const float4 p4 = *reinterpret_cast<const float4*>(ps + o * BN + tx * 4);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          run[i][o] = fminf(run[i][o], acc[i][j] + pv[j]);
+        for (int j = 0; j < TN; ++j) v = fminf(v, (qn[i] + d[i][j]) + pv[j]);
+        v = oct_min(v);
+        if (tn == i) {
+          float* slot = bs + local_row(warp, tm, i) * O + o;
+          *slot = fminf(*slot, v);
+        }
+      }
     }
-  }
-
-  // after the half-warp butterfly every lane of a row group holds the min,
-  // and lane o % 16 writes object o
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-#pragma unroll
-    for (int o = 0; o < OB; ++o) {
-      const float v = half_warp_min(run[i][o]);
-      if ((o & 15) == tx && o < O && m < M) out[(size_t)m * O + o] = v;
-    }
-  }
-}
-
-template <int OB>
-int launch(const float* qT, const float* q2, const float* rT, const float* r2,
-           const float* penT, float* out, int M, int R, int C, int O,
-           cudaStream_t stream) {
-  using namespace simt;
-  const size_t smem = (size_t)(C * BM + C * BN + BN + OB * BN) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      flat_match_kernel<OB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((M + BM - 1) / BM);
-  flat_match_kernel<OB><<<grid, THREADS, smem, stream>>>(qT, q2, rT, r2, penT,
-                                                         out, M, R, C, O);
-  return (int)cudaGetLastError();
+  };
+  reset();
+  const int s_begin = blockIdx.y * steps_per_split;
+  const int s_end = min(n_steps, s_begin + steps_per_split);
+  walk(ring, qs, rb, r2, step_tag, 1, cp, s_begin, s_end, tid,
+       [&](int s, int k, Block& d) {
+         const bool pure = k >= -1 && k < O;
+         if (k != cur) {
+           flush();
+           cur = pure ? k : MIXED;
+         }
+         if (pure)
+           row_min(run, d);
+         else
+           mixed(s, d);
+       });
+  flush();
+  __syncthreads();
+  write_out(out, M, O, tid, [&](int lr, int o) {
+    return fminf(bs[lr * O + o], as[lr] + PEN);
+  });
 }
 
 template <int KS>
@@ -294,14 +303,40 @@ __global__ void flat_tags_kernel(const int* __restrict__ skey, int R,
 
 }  // namespace
 
-extern "C" int global_flat_match_launch(const float* qT, const float* q2,
-                                        const float* rT, const float* r2,
-                                        const float* penT, float* out, int M,
-                                        int R, int C, int O, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (O <= 16) return launch<16>(qT, q2, rT, r2, penT, out, M, R, C, O, s);
-  if (O <= 32) return launch<32>(qT, q2, rT, r2, penT, out, M, R, C, O, s);
-  return (int)cudaErrorInvalidValue;
+static size_t f32_smem(int cp, int O) {
+  using namespace ffma;
+  return (size_t)(main_floats(cp) + BM * O + BM + O * BN) * sizeof(float);
+}
+
+// Float32 mode over the label-sorted bank: qT [tiles][cp][128] with q2
+// [tiles * 128] and rb [n_steps][cp][64] (-2 r in sorted order) with r2
+// [n_steps * 64] (+inf past R), from dist_prep_f32; lab [R, O] float32 in
+// the sorted order, step_tag [n_steps]; the bank is split into runs of
+// steps_per_split steps, one CTA each per query tile (out must hold +inf
+// when there is more than one run).
+extern "C" int global_flat_match_f32_launch(const float* qT, const float* q2,
+                                            const float* rb, const float* r2,
+                                            const float* lab,
+                                            const int* step_tag, float* out,
+                                            int M, int R, int cp, int n_steps,
+                                            int O, int steps_per_split,
+                                            void* stream) {
+  using namespace ffma;
+  if (cp % 4 || steps_per_split < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = f32_smem(cp, O);
+  cudaError_t e = allow_smem(flat_match_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((M + BM - 1) / BM,
+                  (n_steps + steps_per_split - 1) / steps_per_split);
+  flat_match_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      qT, q2, rb, r2, lab, step_tag, out, M, R, cp, n_steps, O,
+      steps_per_split);
+  return (int)cudaGetLastError();
+}
+
+// CTAs of the float32 kernel resident per SM at depth cp and O objects.
+extern "C" int global_flat_match_f32_residency(int cp, int O) {
+  return ffma::residency(flat_match_kernel, f32_smem(cp, O));
 }
 
 // The one-hot route's keys of lab [R, O] (float32) into key [R].

@@ -29,9 +29,14 @@
 // The result is min(1e5, ||q||^2 + that block).  The bank axis is split
 // over several CTAs per query tile, combined by an atomic min.
 //
-// Float32 (parity) mode (seg_map_kernel): the SIMT float32 FMA path of
-// dist_tile.cuh (never TF32), one CTA per 64 query rows, the running min
-// per tile reduced over a half-warp at the tile's end.
+// Float32 (parity) mode (seg_map_kernel): the same route on the float32
+// FMA units through dist_tile.cuh's ffma:: mainloop (never TF32): 128
+// query rows per CTA held in shared memory, 64-row bank steps of -2 r
+// through a cp.async ring, 8 x 8 register tiles per thread, accumulators
+// seeded with ||r||^2 + bias; the epilogue keeps one running min per
+// register row and folds it at a change of object, as above.  Its bound
+// is 2*M*P*C operations at the float32 FMA rate; the min adds one
+// operation per pair (1 %).
 #include "dist_tile.cuh"
 
 namespace {
@@ -39,66 +44,66 @@ namespace {
 using namespace dist_tile;
 constexpr float EMPTY_DIST = 1e5f;
 
-__global__ void __launch_bounds__(simt::THREADS)
+// Float32 mode: the same walk and fold on the FMA units (dist_tile.cuh's
+// ffma::), one running min of d' per register row while the steps' object
+// stays the same, folded across the 8 lanes of a row into the shared
+// [128, O] block at a change.
+__global__ void __launch_bounds__(ffma::THREADS, ffma::MIN_CTAS)
 seg_map_kernel(const float* __restrict__ qT, const float* __restrict__ q2,
-               const float* __restrict__ rT, const float* __restrict__ r2b,
+               const float* __restrict__ rb, const float* __restrict__ r2b,
                const int* __restrict__ tile_obj, float* __restrict__ out,
-               int M, int P, int C, int O, int n_tiles, int tile_rows) {
-  using namespace simt;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;            // [C][BM]
-  float* rs = qs + C * BM;     // [C][BN]
-  float* rb = rs + C * BN;     // [BN]
-  float* os = rb + BN;         // [BM][O]
+               int M, int cp, int n_steps, int O, int steps_per_tile,
+               int steps_per_split) {
+  using namespace ffma;
+  extern __shared__ __align__(16) float smem_f[];
+  float* qs = smem_f;                       // [cp][BM]
+  float* q2s = qs + cp * BM;                // [BM]
+  float* ring = q2s + BM;                   // STAGES stages
+  float* bs = smem_f + main_floats(cp);     // [BM][O]: min of d' per object
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int m0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tm = (tid & 31) >> 3, tn = tid & 7;
+  for (int i = tid; i < BM * O; i += THREADS) bs[i] = INFINITY;
+  load_query(qs, q2s, qT, q2, cp, tid);
 
-  load_query(qs, qT, M, C, m0, tid);
-  for (int i = tid; i < BM * O; i += THREADS) os[i] = EMPTY_DIST;
-  float qn[4];
+  float run[TM];
+  int cur = -1;
+  auto reset = [&]() {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    qn[i] = (m < M) ? q2[m] : 0.f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int obj = tile_obj[t];
-    float run[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
-    const int n_end = (t + 1) * tile_rows;
-    for (int n0 = t * tile_rows; n0 < n_end; n0 += BN) {
-      __syncthreads();  // the previous step's readers are done with rs
-      load_rows(rs, rT, P, C, n0, tid);
-      if (tid < BN) rb[tid] = r2b[n0 + tid];
-      __syncthreads();
-
-      float acc[4][4];
-      cross(qs, rs, C, tx, ty, acc);
-      const float4 r4 = *reinterpret_cast<const float4*>(rb + tx * 4);
-      const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
+    for (int i = 0; i < TM; ++i) run[i] = INFINITY;
+  };
+  // fold the running mins into column cur of the shared block; lane tn
+  // writes register row tn
+  auto flush = [&]() {
+    if (cur >= 0 && cur < O) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          run[i] = fminf(run[i], qn[i] + rv[j] - 2.f * acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float v = half_warp_min(run[i]);
-      if (tx == 0 && obj >= 0 && obj < O) {
-        float* slot = os + (ty * 4 + i) * O + obj;
-        *slot = fminf(*slot, v);
+      for (int i = 0; i < TM; ++i) {
+        const float v = oct_min(run[i]);
+        if (tn == i) {
+          float* slot = bs + local_row(warp, tm, i) * O + cur;
+          *slot = fminf(*slot, v);
+        }
       }
     }
-  }
+    reset();
+  };
+  reset();
+  const int s_begin = blockIdx.y * steps_per_split;
+  const int s_end = min(n_steps, s_begin + steps_per_split);
+  walk(ring, qs, rb, r2b, tile_obj, steps_per_tile, cp, s_begin, s_end, tid,
+       [&](int, int k, Block& d) {
+         if (k != cur) {
+           flush();
+           cur = k;
+         }
+         row_min(run, d);
+       });
+  flush();
   __syncthreads();
-  for (int i = tid; i < BM * O; i += THREADS) {
-    const int j = i / O, m = m0 + j;
-    if (m < M) out[(size_t)m * O + (i - j * O)] = os[i];
-  }
+  // a channel with no tile reads EMPTY_DIST (min(1e5, +inf))
+  write_out(out, M, O, tid, [&](int lr, int o) {
+    return fminf(EMPTY_DIST, q2s[lr] + bs[lr * O + o]);
+  });
 }
 
 template <int KS>
@@ -163,20 +168,39 @@ seg_map_mma_kernel(const uint16_t* __restrict__ q,
 
 }  // namespace
 
-extern "C" int global_seg_map_launch(const float* qT, const float* q2,
-                                     const float* rT, const float* r2b,
-                                     const int* tile_obj, float* out, int M,
-                                     int P, int C, int O, int n_tiles,
-                                     int tile_rows, void* stream) {
-  using namespace simt;
-  const size_t smem = (size_t)(C * BM + C * BN + BN + BM * O) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      seg_map_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+static size_t f32_smem(int cp, int O) {
+  using namespace ffma;
+  return (size_t)(main_floats(cp) + BM * O) * sizeof(float);
+}
+
+// Float32 mode: qT [tiles][cp][128] with q2 [tiles * 128] and rb
+// [n_steps][cp][64] (-2 r) with r2b [n_steps * 64] = ||r||^2 + bias, from
+// dist_prep_f32; tile_obj [n_steps / steps_per_tile]; the bank is split into
+// runs of steps_per_split steps, one CTA each per query tile (out must hold
+// +inf when there is more than one run).
+extern "C" int global_seg_map_f32_launch(const float* qT, const float* q2,
+                                         const float* rb, const float* r2b,
+                                         const int* tile_obj, float* out,
+                                         int M, int cp, int n_steps, int O,
+                                         int steps_per_tile,
+                                         int steps_per_split, void* stream) {
+  using namespace ffma;
+  if (cp % 4 || steps_per_split < 1 || steps_per_tile < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = f32_smem(cp, O);
+  cudaError_t e = allow_smem(seg_map_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((M + BM - 1) / BM);
+  const dim3 grid((M + BM - 1) / BM,
+                  (n_steps + steps_per_split - 1) / steps_per_split);
   seg_map_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      qT, q2, rT, r2b, tile_obj, out, M, P, C, O, n_tiles, tile_rows);
+      qT, q2, rb, r2b, tile_obj, out, M, cp, n_steps, O, steps_per_tile,
+      steps_per_split);
   return (int)cudaGetLastError();
+}
+
+// CTAs of the float32 kernel resident per SM at depth cp and O objects.
+extern "C" int global_seg_map_f32_residency(int cp, int O) {
+  return ffma::residency(seg_map_kernel, f32_smem(cp, O));
 }
 
 template <int KS>

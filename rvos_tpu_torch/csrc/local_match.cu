@@ -74,7 +74,7 @@
 
 namespace {
 
-using dist_tile::tc::smem_addr;
+using dist_tile::smem_addr;
 
 constexpr float PEN = 5e4f;
 constexpr float EMPTY_DIST = 1e5f;

@@ -15,8 +15,8 @@ operands with float32 accumulation, on the tensor cores; norms, penalty
 and the min stay float32, as in kernel 1.  It walks the bank in the
 order of ``flat_route``: sorted by label key, each 64-row step tagged
 pure (one object, or all zero) or mixed, so that a pure step needs one
-min per (query, row) pair instead of O.  Float32 mode runs the SIMT
-float32 path with the O-wide penalised min over the bank as given.
+min per (query, row) pair instead of O.  Float32 mode walks the same
+route with the cross term in float32 on the FMA units (never TF32).
 The Pallas kernel also rounds each penalised distance to bf16 and takes
 its min in bf16, so a penalised entry (≈ 5e4, bf16 ulp 256) may differ
 from this one by a few hundred; both squash to 1.0.  Its wrapper pads
@@ -37,15 +37,17 @@ from typing import Tuple
 import torch
 
 from . import _cuda
-from .cuda_matching import _BN, prepare_operands, tc_bank, tc_query
+from .cuda_matching import (_BN, f32_bank, f32_depth, f32_query, f32_slots,
+                            f32_steps_per_split, prepare_operands, tc_bank,
+                            tc_query)
 
 _PEN = 5e4
-_MAX_OBJ = 32     # running mins per (row, object) live in registers
+_MAX_OBJ = 32     # a CTA's [128, O] block of mins lives in shared memory
 MIXED = -2        # step tag: more than one key, or a general row
 
 
 def flat_route(lab: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The one-hot route of the mixed-mode kernel over a bank with labels
+    """The one-hot route of the kernel (both modes) over a bank with labels
     ``lab [R, O]`` → ``(perm [R] int64, tags [ceil(R / 64)] int32)``.
 
     Each row gets a key: ``o`` when its labels are exactly one-hot at
@@ -123,22 +125,36 @@ def global_flat_min_plain(q: torch.Tensor, r: torch.Tensor, lab: torch.Tensor,
     return best
 
 
-def _launch_mixed(lib, q: torch.Tensor, r: torch.Tensor, lab: torch.Tensor,
-                  stream: int) -> torch.Tensor:
-    """The tensor-core kernel over the bank in ``flat_route``'s order: the
-    rows, norms (+inf on padding rows) and labels gathered by ``perm``."""
+def _launch(lib, q: torch.Tensor, r: torch.Tensor, lab: torch.Tensor,
+            mixed: bool, stream: int) -> torch.Tensor:
+    """The kernel over the bank in ``flat_route``'s order: the rows, norms
+    (+inf on padding rows) and labels gathered by ``perm``, on the tensor
+    cores (mixed) or the FMA units (float32)."""
     m, n_rows, o = q.shape[0], r.shape[0], lab.shape[1]
     perm, tags = flat_route(lab)
     n_steps = tags.shape[0]
-    qb, q2, out, per = tc_query(lib, q, o, n_steps, stream)
-    rb, r2s, labs = tc_bank(lib, r, n_steps * _BN, stream, perm=perm, lab=lab)
-    fn = lib.global_flat_match_mma_launch
+    if mixed:
+        qb, q2, out, per = tc_query(lib, q, o, n_steps, stream)
+        rb, r2s, labs = tc_bank(lib, r, n_steps * _BN, stream, perm=perm,
+                                lab=lab)
+        fn = lib.global_flat_match_mma_launch
+        args = (qb.data_ptr(), q2.data_ptr(), rb.data_ptr(), r2s.data_ptr(),
+                labs.data_ptr(), tags.data_ptr(), out.data_ptr(), m, n_rows,
+                n_steps, qb.shape[1], o, per, stream)
+    else:
+        cp = f32_depth(q.shape[1])
+        per = f32_steps_per_split(m, n_steps, f32_slots(
+            lib, "global_flat_match", cp, o, q.device))
+        qt, q2, out = f32_query(lib, q, o, per < n_steps, stream)
+        rb, r2s, labs = f32_bank(lib, r, n_steps * _BN, stream, perm=perm,
+                                 lab=lab)
+        fn = lib.global_flat_match_f32_launch
+        args = (qt.data_ptr(), q2.data_ptr(), rb.data_ptr(), r2s.data_ptr(),
+                labs.data_ptr(), tags.data_ptr(), out.data_ptr(), m, n_rows,
+                cp, n_steps, o, per, stream)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    err = fn(qb.data_ptr(), q2.data_ptr(), rb.data_ptr(), r2s.data_ptr(),
-             labs.data_ptr(), tags.data_ptr(), out.data_ptr(), m, n_rows,
-             n_steps, qb.shape[1], o, per, stream)
-    _cuda.check(err, "global_flat_min")
+    _cuda.check(fn(*args), "global_flat_min")
     return out
 
 
@@ -162,22 +178,7 @@ def global_flat_min(q: torch.Tensor, r: torch.Tensor, lab: torch.Tensor,
         raise ValueError(f"kernel takes at most {_MAX_OBJ} objects (got {o})")
     lib = _cuda.load("global_flat_match")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if mixed:
-        out = _launch_mixed(lib, q, r, lab, stream)
-    else:
-        q32, q2, r32, r2 = prepare_operands(q, r, False)
-        qt = q32.t().contiguous()
-        rt = r32.t().contiguous()
-        q2, r2 = q2.contiguous(), r2.contiguous()
-        pen_t = ((1.0 - lab.float()) * _PEN).t().contiguous()
-        out = torch.empty((m, o), dtype=torch.float32, device=q.device)
-        fn = lib.global_flat_match_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        err = fn(qt.data_ptr(), q2.data_ptr(), rt.data_ptr(), r2.data_ptr(),
-                 pen_t.data_ptr(), out.data_ptr(), m, n_rows, c, o, stream)
-        _cuda.check(err, "global_flat_min")
+    out = _launch(lib, q, r, lab, mixed, stream)
     global_flat_min.launches += 1
     return out
 

@@ -12,7 +12,9 @@ and ``_EMPTY_DIST = 1e5`` for a channel that owns no tile.  Mixed mode
 takes the cross term from bf16-rounded operands with float32
 accumulation, on the tensor cores; norms, bias and the min stay float32
 (the Pallas kernel also takes the min in bf16 — a float32 min is within
-the mixed tolerance).  Float32 mode runs the SIMT float32 path.
+the mixed tolerance).  Float32 mode takes the cross term in float32 on
+the FMA units (never TF32), the arithmetic of the JAX package's
+``Precision.HIGHEST``.
 
 The same kernel also replaces ``_kernel_seg`` (wrapper
 ``global_matching_pallas_segmented``), the uniform-quota layout of
@@ -31,7 +33,8 @@ versions for CPU tensors; their ``.launches`` count kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -43,6 +46,8 @@ _MAX_OBJ = 32     # per-row output block lives in shared memory
 _SEG_TILE = 1024  # uniform layout: quotas are multiples of this
 _TC_BM = 128      # query rows per CTA of the tensor-core (mixed) kernels
 _TC_MAX_C = 128   # their depth, C rounded up to a multiple of 16
+_F32_BM = 128     # query rows per CTA of the float32 (FMA) kernels
+_F32_MAX_C = 128  # their depth, C rounded up to a multiple of 4
 
 
 def prepare_operands(q: torch.Tensor, r: torch.Tensor, mixed: bool
@@ -73,6 +78,111 @@ def tc_steps_per_split(m: int, n_steps: int, sms: int) -> int:
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+@functools.lru_cache(maxsize=256)
+def f32_steps_per_split(m: int, n_steps: int, slots: int) -> int:
+    """Bank steps per CTA of a float32 (FMA) kernel.
+
+    A CTA holds 128 query rows, so the main path's M = 25,773 fills 202
+    CTAs for ``slots`` resident ones (132 SMs × 2 on an H100 at C =
+    100).  The bank axis is cut into runs of steps, one CTA each per query
+    tile, so that the waves of CTAs end as evenly as they can: the count of
+    runs minimises waves × (steps a run + 1), the 1 standing for a CTA's
+    query tile and epilogue, the fewest runs on a tie, at least 8 steps a
+    run unless the bank is shorter.  With more than one run the CTAs
+    combine by an atomic min."""
+    tiles = -(-m // _F32_BM)
+    best = None
+    for k in range(1, max(1, n_steps // 8) + 1):
+        per = -(-n_steps // k)
+        runs = -(-n_steps // per)
+        cost = -(-tiles * runs // slots) * (per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, per)
+    return best[1]
+
+
+_f32_slots: Dict[tuple, int] = {}
+
+
+def f32_slots(lib, kernel: str, cp: int, n_obj: int, device) -> int:
+    """Resident CTAs of a float32 kernel on the card (CTAs per SM, from
+    the CUDA occupancy query of ``<kernel>_f32_residency``, × SMs),
+    cached per kernel, depth, object count and device."""
+    key = (kernel, cp, n_obj, str(device))
+    if key not in _f32_slots:
+        fn = getattr(lib, f"{kernel}_f32_residency")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        n = fn(cp, n_obj)
+        if n < 1:
+            raise RuntimeError(f"{kernel}: no float32 CTA fits an SM at "
+                               f"depth {cp}, {n_obj} objects (CUDA {-n})")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _f32_slots[key] = n * sms
+    return _f32_slots[key]
+
+
+def f32_depth(c: int) -> int:
+    """The float32 kernels' depth: C rounded up to a multiple of 4 (zero
+    channels change no distance); raises past ``_F32_MAX_C``."""
+    cp = -(-c // 4) * 4
+    if cp > _F32_MAX_C:
+        raise ValueError(f"float32 kernels take C <= {_F32_MAX_C} (got {c})")
+    return cp
+
+
+def _prep_f32(lib, src: torch.Tensor, rows: int, tile: int, stream: int,
+              perm=None, bias=None, lab=None, out=None, n_obj: int = 0,
+              scale: float = 1.0, pad_norm: float = 0.0):
+    """One launch of ``dist_prep_f32``: ``src [R, C]`` (rows gathered by
+    ``perm``) as k-major tiles ``[rows / tile, Cp, tile]`` scaled by
+    ``scale``, norms ``[rows]`` (+ bias; ``pad_norm`` past R), labels in
+    ``perm``'s order (with ``lab``), ``out`` to +inf (when given)."""
+    n, c = src.shape
+    cp = f32_depth(c)
+    sf = src.float().contiguous()
+    bf = None if bias is None else bias.float().contiguous()
+    lf = None if lab is None else lab.float().contiguous()
+    dst = torch.empty((rows // tile, cp, tile), dtype=torch.float32,
+                      device=src.device)
+    norms = torch.empty((rows,), dtype=torch.float32, device=src.device)
+    labs = None if lab is None else torch.empty_like(lf)
+    fn = lib.dist_prep_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_float]
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    _cuda.check(fn(sf.data_ptr(), _ptr(perm), _ptr(bf), scale, dst.data_ptr(),
+                   norms.data_ptr(), _ptr(lf), _ptr(labs), _ptr(out), n, rows,
+                   c, cp, tile, n_obj if lab is None else lab.shape[1],
+                   pad_norm, stream), "dist_prep_f32")
+    return dst, norms, labs
+
+
+def f32_query(lib, q: torch.Tensor, n_obj: int, split: bool, stream: int):
+    """The query side of a float32 kernel, in one launch of
+    ``dist_prep_f32``: k-major tiles ``[ceil(M / 128), Cp, 128]`` (zero
+    past M and C), norms ``[ceil(M / 128) · 128]`` and the ``[M, n_obj]``
+    output, filled with +inf when ``split`` (the bank split over several
+    CTAs).  Returns ``(qt, q2, out)``."""
+    m = q.shape[0]
+    out = torch.empty((m, n_obj), dtype=torch.float32, device=q.device)
+    qt, q2, _ = _prep_f32(lib, q, -(-m // _F32_BM) * _F32_BM, _F32_BM,
+                          stream, out=out if split else None, n_obj=n_obj)
+    return qt, q2, out
+
+
+def f32_bank(lib, r: torch.Tensor, rows: int, stream: int, perm=None,
+             bias=None, lab=None):
+    """The bank side of a float32 kernel, in one launch of
+    ``dist_prep_f32``: row ``n < R`` from source row ``perm[n]`` as ``-2 r``
+    (exact) in k-major steps ``[rows / 64, Cp, 64]``, its norm ``‖r‖²
+    (+ bias)`` and (with ``lab``) its labels; rows past R are zero with
+    norm +inf, so they never win.  Returns ``(rb, r2, labs)``."""
+    return _prep_f32(lib, r, rows, _BN, stream, perm=perm, bias=bias,
+                     lab=lab, scale=-2.0, pad_norm=float("inf"))
 
 
 def tc_query(lib, q: torch.Tensor, n_obj: int, n_steps: int, stream: int):
@@ -175,31 +285,27 @@ def _launch(q: torch.Tensor, r: torch.Tensor, bias: torch.Tensor,
     tobj = tile_obj.to(device=q.device, dtype=torch.int32).contiguous()
     lib = _cuda.load("global_seg_map")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    n_steps = p // _BN
     if mixed:
-        n_steps = p // _BN
         qb, q2, out, per = tc_query(lib, q, n_obj, n_steps, stream)
         rb, r2b, _ = tc_bank(lib, r, p, stream, bias=bias)
         fn = lib.global_seg_map_mma_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
-        err = fn(qb.data_ptr(), q2.data_ptr(), rb.data_ptr(), r2b.data_ptr(),
-                 tobj.data_ptr(), out.data_ptr(), m, n_steps, qb.shape[1],
-                 n_obj, tr // _BN, per, stream)
-        _cuda.check(err, "global_seg_map")
-        return out
-    q32, q2, r32, r2 = prepare_operands(q, r, mixed)
-    qt = q32.t().contiguous()
-    rt = r32.t().contiguous()
-    q2, r2b = q2.contiguous(), (r2 + bias.float()).contiguous()
-    out = torch.empty((m, n_obj), dtype=torch.float32, device=q.device)
-    fn = lib.global_seg_map_launch
+        args = (qb.data_ptr(), q2.data_ptr(), rb.data_ptr(), r2b.data_ptr(),
+                tobj.data_ptr(), out.data_ptr(), m, n_steps, qb.shape[1],
+                n_obj, tr // _BN, per, stream)
+    else:
+        cp = f32_depth(c)
+        per = f32_steps_per_split(m, n_steps, f32_slots(
+            lib, "global_seg_map", cp, n_obj, q.device))
+        qt, q2, out = f32_query(lib, q, n_obj, per < n_steps, stream)
+        rb, r2b, _ = f32_bank(lib, r, p, stream, bias=bias)
+        fn = lib.global_seg_map_f32_launch
+        args = (qt.data_ptr(), q2.data_ptr(), rb.data_ptr(), r2b.data_ptr(),
+                tobj.data_ptr(), out.data_ptr(), m, cp, n_steps, n_obj,
+                tr // _BN, per, stream)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    err = fn(qt.data_ptr(), q2.data_ptr(), rt.data_ptr(), r2b.data_ptr(),
-             tobj.data_ptr(), out.data_ptr(), m, p, c, n_obj, n_tiles, tr,
-             stream)
-    _cuda.check(err, "global_seg_map")
+    _cuda.check(fn(*args), "global_seg_map")
     return out
 
 

@@ -207,6 +207,152 @@ def test_global_seg_matches_plain(dev, mixed, m, c, o):
     assert _rel_err(got, want) <= (4e-3 if mixed else 1e-4)
 
 
+# ---- the float32 (parity) routes of kernels 1 and 3 (dist_tile.cuh ffma::)
+
+def _f32_rows(g, dev, shape, signed):
+    x = torch.randn(shape, generator=g, device=dev)
+    return x if signed else torch.relu(x)
+
+
+def _with_copies(g, q, bank):
+    """q with every third row a copy of a bank row (d ≈ 0 there, under
+    ‖q‖² + ‖r‖² ≫ d)."""
+    q = q.clone()
+    idx = torch.randint(0, bank.shape[0], (q[::3].shape[0],), generator=g,
+                        device=q.device)
+    q[::3] = bank[idx]
+    return q
+
+
+def _f64(q, r, seed):
+    """‖q − r‖² + seed[r] in float64, as q2 + r2 + seed − 2 q·r."""
+    qd, rd = q.double(), r.double()
+    return ((qd * qd).sum(1)[:, None] + (rd * rd).sum(1)[None, :]
+            + seed.double()[None, :] - 2.0 * qd @ rd.T)
+
+
+def _f32_check(got, want, exact, signed):
+    """Within 1e-4 of max(|d|, 1) of the float64 function and, for
+    non-negative rows, of the plain version: with mixed-sign rows the
+    plain version's own rounding at d ≈ 0 nears 1e-4
+    (``test_torch_port_f32_order.py``)."""
+    assert _rel_err(got.double(), exact) <= 1e-4
+    if not signed:
+        assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("m,n_tiles,c,o", [(3001, 40, 100, 11),
+                                           (130, 9, 32, 1),
+                                           (257, 21, 128, 32),
+                                           (77, 13, 100, 7)])
+def test_global_seg_map_f32_ragged(dev, m, n_tiles, c, o, signed):
+    """Kernel 1's float32 route at ragged shapes (M not a multiple of
+    128; C of 32, 100 and 128; O from 1 to 32; 64-row tiles, tiles of no
+    object, an object without tiles, filler rows biased by 5e4), a third
+    of the query rows copies of bank rows; B.2 through its uniform
+    quotas at the same M, C and O."""
+    g = torch.Generator(device=dev).manual_seed(m + c)
+    tile_obj = torch.randint(-1, max(o - 1, 1), (n_tiles,), generator=g,
+                             device=dev).int()
+    p = n_tiles * 64
+    r = _f32_rows(g, dev, (p, c), signed)
+    bias = (torch.rand((p,), generator=g, device=dev) < 0.1).float() * 5e4
+    q = _with_copies(g, _f32_rows(g, dev, (m, c), signed), r)
+    got = ops.global_seg_map(q, r, bias, tile_obj, o, False)
+    want = ops.global_seg_map_plain(q, r, bias, tile_obj, o, False)
+    d = _f64(q, r, bias)
+    exact = torch.full((m, o), 1e5, dtype=torch.float64, device=dev)
+    for t, k in enumerate(tile_obj.tolist()):
+        if 0 <= k < o:
+            exact[:, k] = torch.minimum(exact[:, k],
+                                        d[:, t * 64:(t + 1) * 64].amin(1))
+    _f32_check(got, want, exact, signed)
+    if o > 1:
+        assert (got[:, o - 1] == 1e5).all()
+
+    ru = _f32_rows(g, dev, (o * 1024, c), signed)
+    bu = (torch.rand((o * 1024,), generator=g, device=dev) < 0.1).float() * 5e4
+    got = ops.global_seg(q, ru, bu, o, False)
+    want = ops.global_seg_plain(q, ru, bu, o, False)
+    exact = _f64(q, ru, bu).view(m, o, 1024).amin(2)
+    _f32_check(got, want, exact, signed)
+
+
+@pytest.mark.parametrize("signed", [True, False])
+@pytest.mark.parametrize("kind", ["runs", "general"])
+@pytest.mark.parametrize("m,r,c,o", [(3001, 2500, 100, 11), (130, 999, 32, 1),
+                                     (257, 4097, 128, 32), (77, 700, 100, 17)])
+def test_global_flat_min_f32_ragged(dev, m, r, c, o, kind, signed):
+    """Kernel 3's float32 route at ragged shapes with one-hot runs that
+    begin mid-step and an empty object, or general labels (fractional,
+    two-hot, out-of-range and all-zero rows), a third of the query rows
+    copies of bank rows."""
+    g = torch.Generator(device=dev).manual_seed(m + r + c)
+    emb = _f32_rows(g, dev, (r, c), signed)
+    lab = _flat_labels(kind, r, o, g, dev)
+    q = _with_copies(g, _f32_rows(g, dev, (m, c), signed), emb)
+    n0 = ops.global_flat_min.launches
+    got = ops.global_flat_min(q, emb, lab, False)
+    assert ops.global_flat_min.launches == n0 + 1
+    want = ops.global_flat_min_plain(q, emb, lab, False)
+    pen = (1.0 - lab.double()) * 5e4
+    exact = (_f64(q, emb, torch.zeros(r, device=dev))[:, :, None]
+             + pen[None]).amin(1)
+    assert got.shape == want.shape == (m, o)
+    _f32_check(got, want, exact, signed)
+
+
+@pytest.mark.parametrize("kind", ["runs", "general"])
+def test_global_flat_min_f32_ignores_row_order(dev, kind):
+    """B.3's float32 result on a row-permuted bank equals the unpermuted
+    one bit for bit: no pair's distance depends on where its row lies."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn((1000, 100), generator=g, device=dev)
+    emb = torch.randn((5000, 100), generator=g, device=dev)
+    lab = _flat_labels(kind, 5000, 11, g, dev)
+    perm = torch.randperm(5000, generator=g, device=dev)
+    got = ops.global_flat_min(q, emb[perm], lab[perm], False)
+    want = ops.global_flat_min(q, emb, lab, False)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+def _f32_cases(dev):
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = torch.relu(torch.randn((3001, 100), generator=g, device=dev))
+    emb = torch.relu(torch.randn((6000, 100), generator=g, device=dev))
+    lab = _flat_labels("general", 6000, 11, g, dev)
+    r, rl, tile_obj = compact_reference_bank_occupancy(
+        emb, _flat_labels("runs", 6000, 11, g, dev), 4096)
+    row_obj = tile_obj.long().repeat_interleave(r.shape[0] // tile_obj.shape[0])
+    bias = (1.0 - rl.gather(1, row_obj[:, None])[:, 0]) * 5e4
+    return {"seg_map": lambda: ops.global_seg_map(q, r, bias, tile_obj, 11,
+                                                  False),
+            "flat": lambda: ops.global_flat_min(q, emb, lab, False)}
+
+
+def test_global_f32_launches_are_deterministic(dev):
+    """Two launches of each float32 route give the same result bit for
+    bit: the bank splits combine by an order-independent atomic min."""
+    for name, run in _f32_cases(dev).items():
+        a, b = run(), run()
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("per", ["one_run", "one_step"])
+def test_global_f32_split_equals_one_launch(dev, per, monkeypatch):
+    """The float32 routes with the bank in one run per query tile, or in
+    runs of one step each, equal the default split bit for bit."""
+    from rvos_tpu_torch.ops import cuda_flat, cuda_matching
+    cases = _f32_cases(dev)
+    want = {name: run() for name, run in cases.items()}
+    split = (lambda m, n, s: n) if per == "one_run" else (lambda m, n, s: 1)
+    monkeypatch.setattr(cuda_matching, "f32_steps_per_split", split)
+    monkeypatch.setattr(cuda_flat, "f32_steps_per_split", split)
+    for name, run in cases.items():
+        assert torch.equal(run(), want[name]), name
+
+
 _RADII = (2, 4, 6, 8, 10, 12)
 
 
