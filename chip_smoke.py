@@ -497,14 +497,14 @@ def kernels_per_frame(torch, ev, seq):
         wall_ms = (time.time() - t0) * 1e3
         pad_profile(torch)
     records = device_records(prof)
-    if not any(FILLER in name for name, _, _ in records):
+    if not any(FILLER in name for name, *_ in records):
         raise AssertionError("the profiler lost the end of its record")
     n_var = len(ev.variants.flips)
     counts = {k: [0] for k in PROFILED}
     device_ms = {k: 0.0 for k in PROFILED}
     busy_us = 0.0
     matches = {}                # kernel name -> the PROFILED keys it matches
-    for name, _, us in records:
+    for name, _, us, *_ in records:
         if FILLER in name:
             continue
         busy_us += us

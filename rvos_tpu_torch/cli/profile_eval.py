@@ -26,64 +26,36 @@ replays and the evaluator's ``timing`` split.  Then it streams the video
 again under the profiler from the first steady frame on and prints, per
 profiled frame: wall time (the profiler's overhead included), device
 busy time (the sum of the device events) and idle share, kernels and
-graph replays per frame, and the kernels with the most device time.
-Frame by frame, each model stage is also wrapped in CUDA events (by this
-script only — the package carries no profiling code); a graph cannot
-hold them, so chunked runs print no stages.  The card and its power
-limit head the output.
+graph replays per frame, the device time of each stage of the frame,
+the device's idle time by the host span it fell in, and the kernels with
+the most device time.  The stages come from the evaluator's device stage
+marks (``utils.trace``), switched on before the evaluator captures its
+graphs, so chunked runs show them too: each device record belongs to the
+stage of the last mark before it on its stream; the marks' own kernels
+run in both passes.  The idle gaps (between merged busy intervals) go
+under the innermost span of the evaluator's thread open at each gap's
+middle (``data.wait``, ``pipeline.flat``, ``pipeline.step.ragged``, ...;
+the trace's span log), or under ``graph`` where both neighbouring
+records belong to one graph launch (a bubble inside a replay).  ``--trace`` writes
+the profiled pass as a Chrome trace, marks included.  The card and its
+power limit head the output.
 """
 
 from __future__ import annotations
 
 import argparse
-import functools
 import subprocess
 import time
-
-
-def _stage(name, fn, log):
-    import torch
-
-    @functools.wraps(fn)
-    def run(*a, **kw):
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        out = fn(*a, **kw)
-        end.record()
-        log.append((name, start, end))
-        return out
-    return run
-
-
-def _instrument(ev, log):
-    """Wrap the evaluator's stages in CUDA-event pairs appended to
-    ``log``."""
-    from ..engine import eval as eval_mod
-    from ..models import aocnet
-    m = ev.model
-    for name in ("feature_extracter", "semantic_embedding",
-                 "dynamic_prehead", "dynamic_seghead"):
-        mod = getattr(m, name)
-        mod.forward = _stage(name, mod.forward, log)
-    for name in ("global_matching_flat_segmented", "global_matching_flat",
-                 "cluster_objects",
-                 "cluster_matching", "attention_heads", "proxy_matching",
-                 "local_matching_bank_stacked", "foreground2background"):
-        setattr(aocnet, name, _stage(name, getattr(aocnet, name), log))
-    eval_mod.precompact_bank = _stage("precompact_bank",
-                                      eval_mod.precompact_bank, log)
-    ev.chunk_step = _stage("frame", ev.chunk_step, log)
-
 
 FILLER = "spin_kernel"
 
 
 def device_records(prof) -> list:
     """The device's records of a stopped ``torch.profiler`` run →
-    ``(name, start_ns, duration_us)`` in start order, the filler's
-    included.  Read straight from the kineto result: the profiler's own
-    operator tree (``events()``, ``key_averages()``) took tens of
-    seconds of host time on a training step's records."""
+    ``(name, start_ns, duration_us, stream, correlation id)`` in start
+    order, the filler's included.  Read straight from the kineto result: the
+    profiler's own operator tree (``events()``, ``key_averages()``) took
+    tens of seconds of host time on a training step's records."""
     from torch._C import _demangle
     from torch.autograd import DeviceType
     names = {}
@@ -94,9 +66,18 @@ def device_records(prof) -> list:
         raw = e.name()
         if raw not in names:
             names[raw] = _demangle(raw)
-        rows.append((names[raw], e.start_ns(), e.duration_ns() / 1e3))
+        rows.append((names[raw], e.start_ns(), e.duration_ns() / 1e3,
+                     e.device_resource_id(), e.correlation_id()))
     rows.sort(key=lambda r: r[1])
     return rows
+
+
+def graph_launch_ids(prof) -> set:
+    """The correlation ids of a stopped profiler run's graph launches
+    (``cudaGraphLaunch`` host records): a replay's device records carry
+    its launch's."""
+    return {e.correlation_id() for e in prof.profiler.kineto_results.events()
+            if e.name().startswith("cudaGraphLaunch")}
 
 
 def pad_profile(torch, n: int = 50_000) -> None:
@@ -171,6 +152,7 @@ def main(argv=None):
     from ..data import SyntheticEval
     from ..engine import Evaluator
     from ..models import AOCNet
+    from ..utils import trace
     from ..weights import init_random_
 
     cfg = get_config(args.config, MODEL_BACKBONE=args.backbone,
@@ -183,6 +165,7 @@ def main(argv=None):
         cfg = cfg.replace(TEST_FLIP=args.flip, TEST_MULTISCALE=tuple(args.ms),
                           TEST_MAX_SIZE=800.0)
     model = init_random_(AOCNet(cfg), torch.Generator().manual_seed(args.seed))
+    trace.enable()      # marks in every graph the evaluator captures; spans
     ev = Evaluator(cfg, model, device="cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -221,23 +204,21 @@ def main(argv=None):
           f"{ev.captures} captures, {ev.replays} replays, wall fps "
           f"{out['fps']:.2f}, timing ms/frame {split} [{card}]", flush=True)
 
-    log = []
-    if ev.chunk_n == 1:
-        _instrument(ev, log)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     start = {}
 
     def on_frame(f):
         if f == first - 1:
             torch.cuda.synchronize()
-            log.clear()
             start["replays"] = ev.replays
+            trace.take()            # the spans before the profiled frames
             prof.__enter__()
             start["t"] = time.time()
 
     ev.evaluate_sequence(video(), frame_callback=on_frame)
     torch.cuda.synchronize()
     wall = time.time() - start["t"]
+    log = trace.take()
     pad_profile(torch)
     prof.__exit__(None, None, None)
     n = args.frames - first
@@ -254,15 +235,18 @@ def main(argv=None):
           f"{1 - busy / 1e6 / wall:.3f}, {n_kernels / n:.0f} kernels/frame, "
           f"{(ev.replays - start['replays']) / n:.2f} replays/frame "
           f"[{card}]")
-    stages = {}
-    for name, a, b in log:
-        t, k = stages.get(name, (0.0, 0))
-        stages[name] = (t + a.elapsed_time(b), k + 1)
-    for name, (t, k) in sorted(stages.items(), key=lambda kv: -kv[1][0]):
-        print(f"  stage {name:32s} {t / n:8.3f} ms/frame (calls/frame "
-              f"{k / n:.1f})")
     if not any(FILLER in e.key for e in prof.events()):
         raise RuntimeError("the profiler lost the end of its record")
+    records = [r for r in device_records(prof) if FILLER not in r[0]]
+    stages = trace.stage_times(records)
+    for name in (*trace.STAGES, None):
+        us = stages.get(name, 0.0)
+        print(f"  stage {name or 'unmarked':16s} {us / 1e3 / n:8.3f} "
+              f"ms/frame ({100 * us / max(busy, 1e-9):5.1f} % of busy)")
+    idle = trace.idle_by_span(records, log, graph_launch_ids(prof))
+    for name, ns in sorted(idle.items(), key=lambda kv: -kv[1]):
+        print(f"  idle  {name or 'no span':20s} {ns / 1e6 / n:8.3f} "
+              f"ms/frame ({100 * ns / 1e9 / wall:5.2f} % of wall)")
     kernels = sorted((e for e in prof.key_averages() if on_device(e)),
                      key=lambda e: e.device_time_total, reverse=True)
     for e in kernels[:20]:

@@ -118,10 +118,10 @@ def profile_training(torch, cfg, steps: int, seed: int = 0,
     pad_profile(torch)
     prof.__exit__(None, None, None)
     records = device_records(prof)
-    if not any(FILLER in name for name, _, _ in records):
+    if not any(FILLER in name for name, *_ in records):
         raise RuntimeError("the profiler lost the end of its record")
     by_name = {}
-    for name, _, us in records:
+    for name, _, us, *_ in records:
         if FILLER not in name:
             t, n = by_name.get(name, (0.0, 0))
             by_name[name] = (t + us, n + 1)

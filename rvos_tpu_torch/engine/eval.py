@@ -92,7 +92,6 @@ from __future__ import annotations
 import copy
 import gc
 import os
-import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -108,6 +107,7 @@ from ..ops.entropy import shannon_entropy
 from ..ops.prng import kmeans_init_scores
 from ..ops.resize import resize_nchw
 from ..parallel.mesh import local_devices, resolved_cp_devices
+from ..utils import trace
 from .eval_pipeline import Chunker, D2HBatcher, MaskSaver
 
 UNCERTAIN_LABEL = 125
@@ -213,6 +213,7 @@ class _SeqState:
         else:
             slot = self.ring_ptr
             self.ring_ptr = self.ring_ptr + 1 if self.ring_ptr + 1 < self.capacity else 1
+        trace.stage("pipeline.bank", self.ref_emb.device)
         self.ref_emb[slot].copy_(emb)
         self.ref_lab[slot].copy_(lab)
         self.slot_valid[slot] = 1.0
@@ -501,6 +502,7 @@ class Evaluator:
         """uint8 [K, H, W, 3] → (embeddings [K, h, w, C], low-level), by
         ``model`` (the evaluator's) on the frames' device."""
         dev = frames.device
+        trace.stage("model.extract", dev)
         x = ((frames.float() / 255.0 - self._mean.to(dev))
              / self._std.to(dev))
         return (model or self.model).extract_feature(x.to(self.dtype))
@@ -521,6 +523,7 @@ class Evaluator:
     def _start(self, frames, gt: np.ndarray) -> List[_SeqState]:
         """Frame 0: each variant's embedding and the ground truth (at the
         variant's resolution and orientation) open its bank."""
+        trace.stage("pipeline.upload", self.device)
         xs = self._upload_groups([frames])
         lab = torch.from_numpy(gt.astype(np.int64)).to(self.device)
         pinned = {v: dev for mem, _, dev in self._ens_partitions()
@@ -530,6 +533,7 @@ class Evaluator:
             dev = pinned[v]
             emb = self._embed(self._variant_frame(xs, v).to(dev),
                               self._model_on(dev))[0][0]
+            trace.stage("pipeline.bank", dev)
             h, w, c = emb.shape
             st = self._states.get((v, h, w, c, dev))
             if st is None:
@@ -547,6 +551,7 @@ class Evaluator:
         key = (st.version, ov_np.tobytes())
         if st.flat_key == key:
             return
+        trace.stage("pipeline.bank", st.ref_lab.device)
         onehot = one_hot(st.ref_lab, self.cfg.MODEL_MAX_OBJ_NUM, self.dtype)
         onehot = onehot * self._dev_vec(ov_np, st.ref_lab.device).to(
             self.dtype)
@@ -634,6 +639,7 @@ class Evaluator:
                 logits, mems[v] = self._segment(
                     sts[v], embs[v][k], lows[v][k], prev_embs[v][k],
                     p_labs[v], io.ov, mems[v], io.scores[k], ref_onehots[v])
+                trace.stage("pipeline.post", self.device)
                 p = self._probs(logits, ori_hw, v)
                 total = p if total is None else total + p
             if n_var > 1:
@@ -716,6 +722,7 @@ class Evaluator:
                 logits, mem = self._segment(st, e[j], low[j], st.prev_emb,
                                             st.prev_lab, ov, st.memory,
                                             scores, model=model)
+                trace.stage("pipeline.post", dev)
                 p = self._probs(logits, o_hw, v)
                 part = p if part is None else part + p
                 updates.append((v, e[j], mem))
@@ -763,6 +770,7 @@ class Evaluator:
         before the next step).  A multi-frame chunk on a card fills the
         static buffers of its graph (the states' set of graphs lives on
         the first variant's state); anything else runs on fresh ones."""
+        trace.stage("pipeline.upload", self.device)
         items = [p for _, _, p in buf]
         fs = [f for f, _, _ in buf]
         ori_hw = ctx["ori_hw"]
@@ -792,6 +800,7 @@ class Evaluator:
         block per scale (a group of mixed shapes frame by frame)."""
         for samples, blocks in groups:
             if blocks is not None:
+                trace.stage("pipeline.upload", self.device)
                 dev = [b.to(self.device, non_blocking=True) for b in blocks]
                 for j, s in enumerate(samples):
                     s["frames"] = tuple(d[j] for d in dev)
@@ -802,14 +811,17 @@ class Evaluator:
                           frame_callback: Optional[Callable[[int], None]] = None
                           ) -> Dict:
         """Stream one video.  Returns ``{"results": {frame name: uint8
-        mask}, "fps", "fps_ref", "frames", "time", "timing"}``; frame 0
-        (the given ground truth) has no result.  ``fps`` is wall-clock,
-        from before the first frame to the end of the drain; ``fps_ref``
-        leaves out the time spent waiting for the loader; ``timing``
-        splits the wall time (``loader_wait``, ``flat``,
-        ``step_dispatch``, ``flush``, ``drain``).  ``frame_callback(f)``
-        runs once per frame, in order, after the work of the step that
-        holds frame ``f`` is issued."""
+        mask}, "fps", "frames", "time", "timing"}``; frame 0 (the given
+        ground truth) has no result.  ``time`` is the wall-clock seconds
+        from the first frame's read to the end of the drain (the
+        ``pipeline.video`` span) and ``fps`` the frames over it;
+        ``timing`` holds the video's totals of its spans
+        (``utils.trace``): ``loader_wait`` (``data.wait``), ``flat``
+        (``pipeline.flat``), ``step_dispatch`` (``pipeline.step.*``),
+        ``flush`` (``pipeline.flush``) and ``drain``
+        (``pipeline.drain``).  ``frame_callback(f)`` runs once per frame,
+        in order, after the work of the step that holds frame ``f`` is
+        issued."""
         cfg = self.cfg
         o = cfg.MODEL_MAX_OBJ_NUM
         workers = max(1, cfg.TEST_WORKERS)
@@ -825,104 +837,106 @@ class Evaluator:
         saver = MaskSaver(save_dir, remap=getattr(seq, "label_backward", None))
         timing = {"loader_wait": 0.0, "flat": 0.0, "step_dispatch": 0.0,
                   "flush": 0.0, "drain": 0.0}
-        d2h = D2HBatcher(saver, max(group, cfg.TEST_D2H_GROUP))
+        d2h = D2HBatcher(saver, max(group, cfg.TEST_D2H_GROUP), timing)
         callback = frame_callback or (lambda f: None)
         states: List[_SeqState] = []
 
         def ensure_flat(ov_np):
-            t0 = time.time()
-            for st in states:
-                self._ensure_flat(st, ov_np)
-            timing["flat"] += time.time() - t0
+            with trace.span("pipeline.flat", timing, "flat"):
+                for st in states:
+                    self._ensure_flat(st, ov_np)
 
         def add_refs():
             for st in states:
                 st.add_ref(st.prev_emb, st.conf)
 
         def run_full(buf, ctx):
-            ensure_flat(ctx["ov"])
-            preds = self._step(states, buf, ctx)
-            if self._mem_boundary(buf[-1][0]):
-                add_refs()
-            d2h.append(tuple(n for _, n, _ in buf), preds)
-            for f, _, _ in buf:
-                callback(f)
+            with trace.span("pipeline.step.full", timing, "step_dispatch"):
+                ensure_flat(ctx["ov"])
+                preds = self._step(states, buf, ctx)
+                if self._mem_boundary(buf[-1][0]):
+                    add_refs()
+                d2h.append(tuple(n for _, n, _ in buf), preds)
+                for f, _, _ in buf:
+                    callback(f)
 
         def run_ragged(buf, ctx):
-            ensure_flat(ctx["ov"])
-            for item in buf:
-                preds = self._step(states, [item], ctx)
-                if self._mem_boundary(item[0]):
-                    add_refs()
-                d2h.append((item[1],), preds)
-                callback(item[0])
+            for i, item in enumerate(buf):
+                with trace.span("pipeline.step.ragged", timing,
+                                "step_dispatch"):
+                    if i == 0:
+                        ensure_flat(ctx["ov"])
+                    preds = self._step(states, [item], ctx)
+                    if self._mem_boundary(item[0]):
+                        add_refs()
+                    d2h.append((item[1],), preds)
+                    callback(item[0])
 
         chunker = Chunker(self.chunk_n, run_full, run_ragged,
-                          self._mem_boundary, d2h, timing)
+                          self._mem_boundary, d2h)
         label_all: List[int] = []
         n_frames = 0
         it = iter(loader)
-        t_wall = time.time()
-        for frame_idx in range(len(seq)):
-            t0 = time.time()
-            sample = next(it)
-            timing["loader_wait"] += time.time() - t0
-            meta = sample["meta"]
-            ori_hw = (meta["height"], meta["width"])
-            gt = sample.get("current_label")
-            gt_all = sample.get("current_label_all")
-            if frame_idx == 0 and gt is None:
-                raise ValueError(f"sequence {meta.get('seq_name', '?')}: the "
-                                 "first frame has no 'current_label'")
-            for lab in (gt, gt_all):
-                if lab is not None:
-                    for lid in np.unique(lab).tolist():
-                        if lid != 255 and lid not in label_all:
-                            if lid >= o:
-                                raise ValueError(
-                                    f"sequence {meta.get('seq_name', '?')}: "
-                                    f"object id {lid} >= MODEL_MAX_OBJ_NUM="
-                                    f"{o}")
-                            label_all.append(lid)
-            frames = sample["frames"]
-            if frame_idx == 0:
-                states = self._start(frames, gt)
-                callback(0)
-                continue
-            ov_np = (np.arange(o) <= int(meta["obj_num"])).astype(np.float32)
-            em_np = np.zeros(o, np.float32)
-            em_np[label_all] = 1.0
-            n_frames += 1
-            if gt is None:
-                chunker.push(frame_idx, meta["current_name"], frames,
-                             tuple(tuple(f.shape[:2]) for f in frames),
-                             ov_np, em_np, ori_hw)
-                continue
-            # a join frame runs alone, after the frames buffered before it
-            chunker.flush()
-            t1 = time.time()
-            ensure_flat(ov_np)
-            join = torch.from_numpy(gt.astype(np.int64)).to(self.device)
-            ctx = {"ov": ov_np, "em": em_np, "ori_hw": ori_hw}
-            item = (frame_idx, meta["current_name"], frames)
-            preds = self._step(states, [item], ctx, join)
-            add_refs()
-            d2h.append((item[1],), preds)
-            timing["step_dispatch"] += time.time() - t1
-            callback(frame_idx)
-            d2h.maybe_flush(timing)
-        t0 = time.time()
-        chunker.flush()
-        d2h.flush()
-        results = saver.drain()
-        timing["drain"] = time.time() - t0
-        seq_time = time.time() - t_wall
+        with trace.span("pipeline.video") as video:
+            for frame_idx in range(len(seq)):
+                with trace.span("data.wait", timing, "loader_wait"):
+                    sample = next(it)
+                meta = sample["meta"]
+                ori_hw = (meta["height"], meta["width"])
+                gt = sample.get("current_label")
+                gt_all = sample.get("current_label_all")
+                if frame_idx == 0 and gt is None:
+                    raise ValueError(f"sequence {meta.get('seq_name', '?')}: "
+                                     "the first frame has no 'current_label'")
+                for lab in (gt, gt_all):
+                    if lab is not None:
+                        for lid in np.unique(lab).tolist():
+                            if lid != 255 and lid not in label_all:
+                                if lid >= o:
+                                    raise ValueError(
+                                        f"sequence "
+                                        f"{meta.get('seq_name', '?')}: object "
+                                        f"id {lid} >= MODEL_MAX_OBJ_NUM={o}")
+                                label_all.append(lid)
+                frames = sample["frames"]
+                if frame_idx == 0:
+                    with trace.span("pipeline.start"):
+                        states = self._start(frames, gt)
+                    callback(0)
+                    continue
+                ov_np = (np.arange(o) <= int(meta["obj_num"])).astype(
+                    np.float32)
+                em_np = np.zeros(o, np.float32)
+                em_np[label_all] = 1.0
+                n_frames += 1
+                if gt is None:
+                    chunker.push(frame_idx, meta["current_name"], frames,
+                                 tuple(tuple(f.shape[:2]) for f in frames),
+                                 ov_np, em_np, ori_hw)
+                    continue
+                # a join frame runs alone, after the frames buffered before
+                # it
+                chunker.flush()
+                with trace.span("pipeline.step.join", timing,
+                                "step_dispatch"):
+                    ensure_flat(ov_np)
+                    trace.stage("pipeline.upload", self.device)
+                    join = torch.from_numpy(gt.astype(np.int64)).to(
+                        self.device)
+                    ctx = {"ov": ov_np, "em": em_np, "ori_hw": ori_hw}
+                    item = (frame_idx, meta["current_name"], frames)
+                    preds = self._step(states, [item], ctx, join)
+                    add_refs()
+                    d2h.append((item[1],), preds)
+                callback(frame_idx)
+                d2h.maybe_flush()
+            with trace.span("pipeline.drain", timing, "drain"):
+                chunker.flush()
+                d2h.flush()
+                results = saver.drain()
         self._last_states = states
-        return {"results": results, "frames": n_frames, "time": seq_time,
-                "fps": n_frames / max(seq_time, 1e-6),
-                "fps_ref": n_frames / max(seq_time - timing["loader_wait"],
-                                          1e-6),
-                "timing": timing}
+        return {"results": results, "frames": n_frames, "time": video.seconds,
+                "fps": n_frames / max(video.seconds, 1e-6), "timing": timing}
 
     def evaluating(self, dataset, save_root: Optional[str] = None,
                    verbose: bool = True) -> Dict:

@@ -21,13 +21,13 @@ mask writer thread (``MaskSaver``).
 from __future__ import annotations
 
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.image import save_mask
 
 # (frame names, host block [K, H, W] uint8, event to wait on or None)
@@ -41,6 +41,7 @@ def to_host(block: torch.Tensor) -> Tuple[torch.Tensor,
     event behind it; a CPU tensor is already there."""
     if block.device.type != "cuda":
         return block, None
+    trace.stage("pipeline.post", block.device)
     host = torch.empty(block.shape, dtype=block.dtype, pin_memory=True)
     host.copy_(block, non_blocking=True)
     done = torch.cuda.Event()
@@ -102,11 +103,14 @@ class D2HBatcher:
     saver.  Entries are ``(names, block [K, H, W])``: a multi-frame block
     starts its copy on ``append``; single frames are concatenated per
     resolution at ``flush`` (a mid-sequence size change may mix shapes)
-    and copied then."""
+    and copied then.  ``maybe_flush``'s flushes are ``pipeline.flush``
+    spans, added to ``timing["flush"]`` when ``timing`` is given."""
 
-    def __init__(self, saver: MaskSaver, group: int):
+    def __init__(self, saver: MaskSaver, group: int,
+                 timing: Optional[Dict[str, float]] = None):
         self.saver = saver
         self.group = max(1, group)
+        self.timing = timing
         self._host: List[HostBlock] = []
         self._singles: List[Tuple[str, torch.Tensor]] = []
 
@@ -131,12 +135,10 @@ class D2HBatcher:
             self.saver.submit_blocks(list(self._host))
             self._host.clear()
 
-    def maybe_flush(self, timing: Optional[Dict[str, float]] = None):
+    def maybe_flush(self):
         if self.frames() >= self.group:
-            t0 = time.time()
-            self.flush()
-            if timing is not None:
-                timing["flush"] += time.time() - t0
+            with trace.span("pipeline.flush", self.timing, "flush"):
+                self.flush()
 
 
 class Chunker:
@@ -149,8 +151,7 @@ class Chunker:
 
     def __init__(self, chunk_n: int, run_full: Callable, run_ragged: Callable,
                  mem_boundary: Callable[[int], bool],
-                 d2h: Optional[D2HBatcher] = None,
-                 timing: Optional[Dict[str, float]] = None):
+                 d2h: Optional[D2HBatcher] = None):
         self.chunk_n = max(1, chunk_n)
         self.buf: List = []
         self.ctx: Dict = {}
@@ -158,7 +159,6 @@ class Chunker:
         self.run_ragged = run_ragged
         self.mem_boundary = mem_boundary
         self.d2h = d2h
-        self.timing = timing
 
     def push(self, f: int, name: str, payload, sig, ov_np, em_np, o_hw,
              extra=None):
@@ -178,13 +178,10 @@ class Chunker:
     def flush(self):
         if not self.buf:
             return
-        t1 = time.time()
         if len(self.buf) == self.chunk_n and self.chunk_n > 1:
             self.run_full(self.buf, self.ctx)
         else:
             self.run_ragged(self.buf, self.ctx)
-        if self.timing is not None:
-            self.timing["step_dispatch"] += time.time() - t1
         self.buf = []
         if self.d2h is not None:
-            self.d2h.maybe_flush(self.timing)
+            self.d2h.maybe_flush()

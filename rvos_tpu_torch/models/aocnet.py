@@ -28,6 +28,7 @@ from ..ops.matching import (compact_reference_bank,
                             global_matching_flat,
                             global_matching_flat_segmented, squash_distance)
 from ..ops.train_matching import global_matching_min, local_matching_min
+from ..utils import trace
 from .decoder import CalibrationDecoding, DecoderMemory
 from .deeplab import BACKBONES, DeepLab
 from .layers import GN, DynamicPreHead
@@ -138,6 +139,8 @@ class AOCNet(nn.Module):
         as the JAX package sends every context-parallel bank to its flat
         route; local matching is not split."""
         c = self.cfg
+        dev = current_emb.device
+        trace.stage("model.match", dev)
         h, w, _ = current_emb.shape
         o = ref_onehot.shape[-1]
         bias = self.dis_bias(o).float()
@@ -184,10 +187,12 @@ class AOCNet(nn.Module):
 
         # 2. AOP cluster matching, on detached inputs (no gradient
         # reaches the bank through 20 Lloyd iterations)
+        trace.stage("model.kmeans", dev)
         with torch.no_grad():
             banks = cluster_objects(flat_emb.detach(), flat_lab.detach(),
                                     kmeans_scores, k=c.MODEL_CLUSTER_NUM,
                                     iters=c.MODEL_KMEANS_ITERS, mixed=mixed)
+        trace.stage("model.match", dev)
         global_cluster = cluster_matching(current_emb, banks, bias,
                                           dtype=dtype, devices=cp)
 
@@ -216,6 +221,7 @@ class AOCNet(nn.Module):
         maps = maps.permute(2, 3, 0, 1).to(current_emb.dtype)
 
         # 6. prehead + decoder
+        trace.stage("model.decode", dev)
         pre = self.dynamic_prehead(maps)
         cur = current_emb.permute(2, 0, 1)[None].expand(o, -1, -1, -1)
         x = torch.cat([cur, pre], dim=1)

@@ -26,7 +26,10 @@ past ``R`` instead.
 What bounds it on the H100, and what the design does about it: see
 ``csrc/global_flat_match.cu``.  ``global_flat_min`` launches that kernel
 for CUDA tensors (or raises) and runs ``global_flat_min_plain`` for CPU
-tensors; ``global_flat_min.launches`` counts kernel launches.
+tensors; ``global_flat_min.launches`` counts the wrapper's calls on CUDA
+tensors: eager launches (a capture's warm-up run among them) and the
+launches a CUDA graph captures, not the graph's replays (a replay runs
+no Python).
 """
 
 from __future__ import annotations

@@ -19,8 +19,10 @@ What bounds it on the H100, and what the design does about it: see
 ``csrc/local_match.cu``.  ``local_match`` launches the operand
 preparation and that kernel for CUDA tensors (or raises) and runs
 ``local_match_plain`` for CPU tensors; ``local_match.launches`` counts
-the matching kernel's launches.  The labels must be one-hot (at most one
-object per pixel), as every caller's are.
+the wrapper's calls on CUDA tensors: eager launches (a capture's warm-up
+run among them) and the launches a CUDA graph captures, not the graph's
+replays (a replay runs no Python).  The labels must be one-hot (at most
+one object per pixel), as every caller's are.
 """
 
 from __future__ import annotations

@@ -27,7 +27,10 @@ point, with its own launch counter.
 What bounds it on the H100, and what the design does about it: see
 ``csrc/global_seg_map.cu``.  ``global_seg_map`` and ``global_seg``
 launch that kernel for CUDA tensors (or raise) and run their plain
-versions for CPU tensors; their ``.launches`` count kernel launches.
+versions for CPU tensors; their ``.launches`` count the wrappers' calls
+on CUDA tensors: eager launches (a capture's warm-up run among them) and
+the launches a CUDA graph captures, not the graph's replays (a replay
+runs no Python).
 """
 
 from __future__ import annotations

@@ -574,6 +574,65 @@ def test_failed_capture_raises(dev):
     assert ev.replays == 0
 
 
+def _replay_records(cfg, marks: bool):
+    """One replay of a chunk graph captured with stage marks ``marks``,
+    profiled → (its device records ``(name, correlation id)`` in start
+    order, filler left out; the correlation ids of its graph launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rvos_tpu_torch.cli.profile_eval import FILLER, pad_profile
+    from rvos_tpu_torch.utils import trace
+    if marks:
+        trace.enable(log=False)
+    try:
+        ev = Evaluator(cfg, _make_model(cfg)(), device="cuda",
+                       kmeans_scores=parity_scores)
+        ev.evaluate_sequence(SyntheticEval(size=(65, 65), n_seqs=1,
+                                           n_frames=4)[0])
+    finally:
+        trace.disable()
+    st = ev._last_states[0]
+    (graph,) = st.graphs.values()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ev.run_chunk([st], graph.io, (65, 65))
+        torch.cuda.synchronize()
+        pad_profile(torch)
+    dev, launches = [], []
+    for e in sorted(prof.profiler.kineto_results.events(),
+                    key=lambda e: e.start_ns()):
+        if e.device_type() == DeviceType.CUDA:
+            if FILLER not in e.name():
+                dev.append((e.name(), e.correlation_id()))
+        elif e.name().startswith("cudaGraphLaunch"):
+            launches.append(e.correlation_id())
+    return dev, launches
+
+
+def test_stage_marks_survive_graph_capture(dev):
+    """Marks switched on before capture are nodes of the chunk graph: one
+    replay of a 3-frame chunk shows them in stage order (the extractor,
+    then each frame's matching, k-means, matching, decoder and
+    post-processing), and every record of the replay carries its graph
+    launch's correlation id.  A graph captured with marks off replays
+    as many records as the marked one less its marks (counted: CUDA may
+    run a copy node as a kernel in one capture and as a copy in
+    another)."""
+    from rvos_tpu_torch.utils.trace import stage_of
+    cfg = _chunk_config("occupancy")
+    on, launches = _replay_records(cfg, marks=True)
+    marks = [stage_of(n) for n, _ in on if stage_of(n)]
+    assert marks == ["model.extract"] + 3 * [
+        "model.match", "model.kmeans", "model.match", "model.decode",
+        "pipeline.post"]
+    assert len(launches) == 1
+    assert {c for _, c in on} == set(launches)
+    off, _ = _replay_records(cfg, marks=False)
+    assert len(on) - len(marks) == len(off)
+
+
 def _mf_config(matching="float32", chunk=1):
     """The parity setting with the ensemble: scales 1.0 and 1.3 with
     flip (65×65 and 81×81 frames, four variants)."""

@@ -262,7 +262,7 @@ def test_chunked_evaluator_cuts_where_jax_does(chunked_vs_frames):
         assert o["frames"] == 12
         assert set(o["timing"]) == {"loader_wait", "flat", "step_dispatch",
                                     "flush", "drain"}
-        assert o["fps"] > 0 and o["fps_ref"] >= o["fps"]
+        assert o["fps"] > 0
 
 
 @pytest.mark.parametrize("knob", ["TEST_H2D_GROUP", "TEST_WORKERS",
