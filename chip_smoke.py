@@ -6,12 +6,14 @@
 Phases, one line each (a failing phase raises and exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit), the build of the
-   three CUDA sources in ``rvos_tpu_torch/csrc`` (one ``nvcc`` per
+   four CUDA sources in ``rvos_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together) and the count of tensor-core instructions
-   (``HMMA``/``HGMMA`` in ``cuobjdump -sass``) in each library: every
-   library must have some; and the registers, spill bytes (ptxas) and
+   (``HMMA``/``HGMMA`` in ``cuobjdump -sass``) in each matching library:
+   every one must have some; and the registers, spill bytes (ptxas) and
    ``FFMA`` count (SASS) of the float32 kernels of kernels 1 and 3
-   (``seg_map_kernel``, ``flat_match_kernel``), which must have FFMAs;
+   (``seg_map_kernel``, ``flat_match_kernel``) and of the k-means
+   kernel's mixed K = 16 pass (``assign_kernel<4, true>``), which must
+   have FFMAs;
 2. each kernel against its plain PyTorch version at the shapes of the
    path that runs it, in float32 (max |Δ|/max(|d|, 1) ≤ 1e-4) and mixed
    precision (≤ 4e-3), with its time beside the plain version's, its
@@ -22,7 +24,11 @@ Phases, one line each (a failing phase raises and exits non-zero):
    entry (B.2) at the uniform-quota bank, kernel 3 (B.3) at no cap and
    at the fg-union bank, kernel 2 (B.4); B.1 and B.4 again at the
    ensemble's largest scale (a 593×1041 frame: 38,889 query rows, a
-   75×131 local grid);
+   75×131 local grid); the AOP k-means kernel (``ops.masked_kmeans``)
+   at the main path's bank (16,384 rows, 11 object channels, K = 16,
+   20 + 1 passes), its library yardstick the plain version itself (the
+   ``torch.matmul`` route over all object channels), and the plain
+   route's initial ``torch.sort`` timed alone;
 3. the main path, the streaming evaluator's default pipeline with the
    full ``resnet101_aocnet`` preset (ResNet-101, 11 object channels,
    8-slot bank, 16,384-row occupancy bank, bf16 compute, mixed
@@ -36,9 +42,10 @@ Phases, one line each (a failing phase raises and exits non-zero):
    wrapper counts where it issues a launch, so a graph's kernels count
    at its warm-up and capture) and, from ``torch.profiler`` over a second
    run of the video, each kernel's count on every frame (a frame ends at
-   its kernel-2 launch): the layout's global kernel and kernel 2 must run
-   on every frame after the first.  A line before it gives the time of the
-   default k-means draws (``ops.prng``) per frame;
+   its kernel-2 launch): the layout's global kernel, kernel 2 and the
+   k-means kernel must run on every frame after the first.  A line
+   before it gives the time of the default k-means draws (``ops.prng``)
+   per frame;
 3b. the graph path, on the video's first 12 frames (one steady chunk),
    under each other bank layout — no cap
    (``MATCHING_MAX_REF_PIXELS=0``) and the fg-union bank
@@ -226,7 +233,11 @@ def _mma_count(sass: str) -> int:
 # mangled names (not the tensor-core ``*_mma_kernel``s)
 F32_KERNELS = {"global_seg_map": ("seg_map_kernel", r"\d+seg_map_kernelE"),
                "global_flat_match": ("flat_match_kernel",
-                                     r"\d+flat_match_kernelE")}
+                                     r"\d+flat_match_kernelE"),
+               "kmeans": ("assign_kernel<4, true>",
+                          r"\d+assign_kernelILi4ELb1EE")}
+# the libraries whose SASS must hold tensor-core instructions
+MMA_LIBS = ("global_seg_map", "local_match", "global_flat_match")
 
 
 def f32_kernel_stats(name: str, sass: str, log: str) -> dict:
@@ -458,15 +469,78 @@ def check_local(torch, ops, shapes, mixed: bool):
         f32_ops=2.0 * 2 * pairs, plain_reps=1)
 
 
+def kmeans_blobs(torch, r, c, counts, k, seed, device="cuda"):
+    """A k-means problem without near-ties: points [r, c], weights and
+    init scores [O, r] (O = len(counts)).  Object q owns ``counts[q]``
+    rows spread over the bank (the remaining rows at its end are zero
+    padding of no object), in min(k, counts[q]) blobs far apart (centres
+    ×10, spread 0.5), with weights in [0.25, 1]; the top-k scores name one
+    row of each blob (weight 1), so every Lloyd pass assigns each row to
+    its blob's centroid by a margin far above float32 rounding."""
+    g = torch.Generator().manual_seed(seed)
+    o, n = len(counts), sum(counts)
+    owner = torch.cat([torch.full((m,), q) for q, m in enumerate(counts)])
+    perm = torch.randperm(n, generator=g)
+    pts = torch.zeros(r, c)
+    w = torch.zeros(o, r)
+    s = 0.5 + 0.4 * torch.rand(o, r, generator=g)
+    for q, m in enumerate(counts):
+        rows = perm[owner == q]
+        nb = min(k, m)
+        blob = torch.arange(m) % nb
+        cen = 10.0 * torch.randn(nb, c, generator=g)
+        pts[rows] = cen[blob] + 0.5 * torch.randn(m, c, generator=g)
+        w[q, rows] = 0.25 + 0.75 * torch.rand(m, generator=g)
+        w[q, rows[:nb]] = 1.0
+        s[q, rows[:nb]] = 0.99 - 0.001 * torch.arange(nb)
+    return pts.to(device), w.to(device), s.to(device)
+
+
+# the main path's bank: 16,384 rows over 11 object channels, 6 of them live
+KMEANS_COUNTS = (9000, 3000, 2000, 1200, 500, 300, 0, 0, 0, 0, 0)
+
+
+def check_kmeans(torch, ops, shapes, mixed: bool):
+    """The AOP k-means kernel at the main path's shapes (``kmeans_blobs``:
+    a 16,384-row bank, 11 object channels, K = 16, 20 + 1 passes) against
+    the plain version on the card; the plain version is also the library
+    yardstick (the ``torch.matmul`` route over all object channels), and
+    its initial stable sort is timed alone.  The bound counts what one
+    object a row needs: per pass 2·R·K·C of distances and 2·R·C of sums at
+    the float32 rate, and the points, weights and scores read once."""
+    from rvos_tpu_torch.ops.kmeans import _masked_kmeans
+    r, c, k, iters = shapes["p"], shapes["c"], 16, 20
+    counts = KMEANS_COUNTS[:shapes["o"]]
+    pts, w, s = kmeans_blobs(torch, r, c, counts, k, 5)
+
+    def flat(banks):
+        return torch.cat([t.float().reshape(-1) for t in banks])
+
+    res = _measure(
+        torch, "masked_kmeans", mixed,
+        lambda: flat(ops.masked_kmeans(pts, w, s, k, iters, mixed)),
+        lambda: flat(_masked_kmeans(pts, w, s, k, iters, mixed)),
+        lambda: _masked_kmeans(pts, w, s, k, iters, mixed),
+        r * c * 4 + 2 * len(counts) * r * 4, 0.0,
+        [r, c, len(counts), k, iters],
+        f32_ops=(iters + 1) * (2.0 * r * k * c + 2.0 * r * c))
+    sw = s * w
+    res["sort_ms"] = _time_ms(lambda: torch.sort(sw, dim=-1, descending=True,
+                                                 stable=True), 10)
+    return res
+
+
 # the kernel wrapper that each bank layout's global stream launches
 GLOBAL_KERNEL = {"occupancy": "global_seg_map", "uniform": "global_seg",
                  "unsegmented": "global_flat_min", "cap0": "global_flat_min"}
-COUNTED = ("global_seg_map", "global_seg", "global_flat_min", "local_match")
+COUNTED = ("global_seg_map", "global_seg", "global_flat_min", "local_match",
+           "masked_kmeans")
 # the kernels of the path as the profiler names them (kernel 1 serves
 # B.1 and B.2; float32 and tensor-core variants alike)
 PROFILED = {"global_seg_map": r"\bseg_map_(?:mma_)?kernel\b",
             "global_flat_min": r"\bflat_match_(?:mma_)?kernel\b",
             "local_match": r"\blocal_(?:mma|f32)_kernel\b",
+            "kmeans": r"\bassign_kernel\b",
             "dist_prep": r"\bprep::(?:query|bank|f32)_kernel\b",
             "local_prep": r"\bprep_kernel\b",
             "flat_route": r"\bflat_(?:keys|tags)_kernel\b",
@@ -567,7 +641,7 @@ def run_video(torch, ops, ev, seq, global_kernel, window,
     torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     replays, captures = ev.replays - replays0, ev.captures - captures0
-    for k in (global_kernel, "local_match"):
+    for k in (global_kernel, "local_match", "masked_kmeans"):
         if launches[k] < 1:
             raise AssertionError(f"{k} never launched: {launches}")
     for k in ("global_seg_map", "global_seg", "global_flat_min"):
@@ -591,7 +665,7 @@ def run_video(torch, ops, ev, seq, global_kernel, window,
     prof_seq = seq if profile_frames is None else _Head(seq, profile_frames)
     profiled, dev = kernels_per_frame(torch, ev, prof_seq)
     n_var = len(ev.variants.flips)
-    for k in (PROFILED_GLOBAL[global_kernel], "local_match"):
+    for k in (PROFILED_GLOBAL[global_kernel], "local_match", "kmeans"):
         got = profiled.get(k, [])
         if len(got) != len(prof_seq) - 1 or min(got) < n_var:
             raise AssertionError(f"profiler: {k} per frame {got}")
@@ -1609,14 +1683,14 @@ def phase7(torch, ops, card, base=None) -> dict:
 
 
 def phase1(torch, card) -> dict:
-    """Phase 1: the build of the three CUDA sources (one ``nvcc`` each,
+    """Phase 1: the build of the four CUDA sources (one ``nvcc`` each,
     started together), the ptxas report, the tensor-core instructions of
-    each library (it must have some) and the registers, spill bytes and
-    FFMA count of the float32 kernels of kernels 1 and 3 (they must have
-    FFMAs)."""
+    each matching library (it must have some) and the registers, spill
+    bytes and FFMA count of the float32 kernels of kernels 1 and 3 and of
+    the k-means kernel (they must have FFMAs)."""
     from rvos_tpu_torch.ops import _cuda
     t0 = time.time()
-    paths = _cuda.build(["global_seg_map", "local_match", "global_flat_match"])
+    paths = _cuda.build(list(MMA_LIBS) + ["kmeans"])
     built_s = time.time() - t0
     ptxas, logs = [], {}
     for name in paths:
@@ -1635,7 +1709,7 @@ def phase1(torch, card) -> dict:
           f"{mma} | " + " ; ".join(ptxas), flush=True)
     print(f"phase 1 float32 kernels (registers, spill bytes from ptxas, FFMA "
           f"in cuobjdump -sass): {f32}", flush=True)
-    for name in paths:
+    for name in MMA_LIBS:
         if not mma[name]:
             raise AssertionError(f"{name}: no tensor-core instruction in SASS")
     for name, st in f32.items():
@@ -1668,6 +1742,7 @@ def phase2(torch, ops, card, cfg) -> dict:
         res[("local", mixed)] = check_local(torch, ops, shapes, mixed)
         res[("global_mf", mixed)] = check_global(torch, ops, mf_shapes, mixed)
         res[("local_mf", mixed)] = check_local(torch, ops, mf_shapes, mixed)
+        res[("kmeans", mixed)] = check_kmeans(torch, ops, shapes, mixed)
     for (k, mixed), r in res.items():
         rate = (f" TFLOP/s={r['ops'] / r['ms'] / 1e9:.2f} "
                 f"share_of_bound={r['bound_ms'] / r['ms']:.3f}"
@@ -1676,7 +1751,9 @@ def phase2(torch, ops, card, cfg) -> dict:
               f"max_abs_err={r['max_abs_err']:.3e} rel={r['rel_err']:.3e} "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}){rate} "
-              f"library_ms={r['library_ms']} [{card}]", flush=True)
+              f"library_ms={r['library_ms']}"
+              + (f" sort_ms={r['sort_ms']:.4f}" if "sort_ms" in r else "")
+              + f" [{card}]", flush=True)
     print(f"phase 2 took {time.time() - t0:.1f} s", flush=True)
     return res
 

@@ -1,4 +1,5 @@
 from .cuda_flat import global_flat_min, global_flat_min_plain
+from .cuda_kmeans import masked_kmeans
 from .cuda_local import local_match, local_match_plain
 from .cuda_matching import (global_seg, global_seg_map, global_seg_map_plain,
                             global_seg_plain)
@@ -42,6 +43,7 @@ __all__ = [
     "local_match",
     "local_match_plain",
     "local_matching_bank_stacked",
+    "masked_kmeans",
     "proxy_matching",
     "proxy_reconstructed_embedding",
     "segmented_quota",

@@ -9,8 +9,11 @@ final centroids and the final-assignment cluster means.
 
 The init scores are an argument, ``[O, R]`` uniform draws in
 [0.5, 1.0) before the foreground mask; the evaluator draws the JAX
-package's own (``ops.prng``).  Assignment and update products are plain
-``torch.matmul``, as the JAX package leaves them to XLA.
+package's own (``ops.prng``).  ``_masked_kmeans`` is the plain version,
+assignment and update products as ``torch.matmul`` over all O object
+channels, as the JAX package leaves them to XLA; it runs CPU tensors and
+is the oracle of ``ops.cuda_kmeans.masked_kmeans``, the kernel that
+``cluster_objects`` launches for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from .cuda_kmeans import masked_kmeans
 from .matching import (WRONG_LABEL_PADDING_DISTANCE, shard_rows,
                        squash_distance)
 
@@ -72,10 +76,12 @@ def cluster_objects(ref_emb_flat: torch.Tensor, ref_onehot_flat: torch.Tensor,
                     init_scores: torch.Tensor, k: int = 16, iters: int = 20,
                     mixed: bool = False) -> ClusterBanks:
     """Per-object k-means over foreground reference pixels.
-    ``ref_emb_flat`` [R, C]; ``ref_onehot_flat`` [R, O]; ``init_scores``
-    [O, R]."""
-    cent, cv, means, mv = _masked_kmeans(ref_emb_flat, ref_onehot_flat.T,
-                                         init_scores, k, iters, mixed)
+    ``ref_emb_flat`` [R, C]; ``ref_onehot_flat`` [R, O], at most one object
+    a row; ``init_scores`` [O, R].  CUDA tensors run the kernel
+    (``ops.cuda_kmeans``), others the plain version."""
+    run = masked_kmeans if ref_emb_flat.is_cuda else _masked_kmeans
+    cent, cv, means, mv = run(ref_emb_flat, ref_onehot_flat.T, init_scores,
+                              k, iters, mixed)
     return ClusterBanks(cent, cv, means, mv)
 
 

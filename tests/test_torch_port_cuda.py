@@ -432,6 +432,176 @@ def test_local_match_strided_bf16_labels(dev):
     assert _rel_err(got, want) <= 4e-3
 
 
+# ---- the AOP k-means kernel (ops.masked_kmeans) ------------------------
+# Tolerance: max |kernel − plain| / max(|plain|, 1) ≤ 1e-5 for centroids
+# and means (float32 sums in another order; a mean of ~10^3 rows of
+# magnitude ~10 moves by a few 1e-7 relative), validity masks and
+# assignments equal on data without near-ties (``chip_smoke.kmeans_blobs``).
+
+
+def _assignments(pts, w, cent, valid):
+    """Each labelled row's nearest valid centroid of its object (float64),
+    object by object."""
+    out = []
+    for q in range(w.shape[0]):
+        d = torch.cdist(pts.double()[w[q] != 0], cent[q].double())
+        d[:, ~valid[q]] = float("inf")
+        out.append(d.argmin(-1) if d.shape[0] else d.new_zeros(0).long())
+    return torch.cat(out)
+
+
+_KMEANS_CASES = {
+    # the main path: a 16,384-row bank, 11 object channels, 384 padding rows
+    "main": (16384, 100, (9000, 3000, 2000, 1200, 500, 300, 0, 0, 0, 0, 0),
+             16, 20),
+    # a ragged R: fewer rows than k, an empty object, a one-row object
+    "ragged": (1037, 100, (600, 9, 0, 300, 1), 16, 20),
+    # the limits: C = 128, k = 32, O = 32
+    "limits": (777, 128, (24,) * 30 + (5, 0), 32, 6),
+    # a C that is no multiple of 4, k <= 4
+    "narrow": (501, 13, (200, 250), 3, 7),
+}
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("points_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(_KMEANS_CASES))
+def test_masked_kmeans_matches_plain(dev, mixed, points_dtype, case):
+    """The kernel against the plain ``_masked_kmeans`` on the CPU, on the
+    same inputs (bf16 points as the eval's bf16 compute passes them)."""
+    from chip_smoke import kmeans_blobs
+    from rvos_tpu_torch.ops.kmeans import _masked_kmeans
+    r, c, counts, k, iters = _KMEANS_CASES[case]
+    pts, w, s = kmeans_blobs(torch, r, c, counts, k, len(case), "cpu")
+    pts = pts.to(points_dtype)
+    want = _masked_kmeans(pts, w, s, k, iters, mixed)
+    n0 = ops.masked_kmeans.launches
+    got = ops.masked_kmeans(pts.to(dev), w.to(dev), s.to(dev), k, iters,
+                            mixed)
+    torch.cuda.synchronize()
+    assert ops.masked_kmeans.launches == n0 + 1
+    got = [t.cpu() for t in got]
+    for g_, w_ in zip(got, want):
+        assert g_.shape == w_.shape and g_.dtype == w_.dtype
+    assert torch.equal(got[1], want[1]) and torch.equal(got[3], want[3])
+    assert _rel_err(got[0], want[0]) <= 1e-5
+    assert _rel_err(got[2], want[2]) <= 1e-5
+    assert torch.equal(_assignments(pts, w, got[0], got[1]),
+                       _assignments(pts, w, want[0], want[1]))
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_masked_kmeans_ties_resolve_to_first_index(dev, mixed):
+    """Integer points, copies of 10 prototypes an object, weights 1, 0.5
+    and 0.25, zero padding rows, and init scores that seed the 16
+    centroids on all 10 prototypes and 6 repeats: every distance, sum and
+    mean is exact, each row ties between its prototype's copies, and the
+    first index must take it (``torch.argmin``'s rule; the repeats keep no
+    row), so the kernel equals the plain version bit for bit."""
+    from rvos_tpu_torch.ops.kmeans import _masked_kmeans
+    g = torch.Generator().manual_seed(3)
+    r, c, o, k, m = 2000, 100, 3, 16, 10
+    protos = torch.randint(-2, 3, (o, m, c), generator=g).float()
+    owner = torch.randint(0, o, (r,), generator=g)
+    owner[-100:] = -1
+    which = torch.randint(0, m, (r,), generator=g)
+    lab = owner >= 0
+    pts = protos[owner.clamp(min=0), which] * lab[:, None]
+    rows = torch.arange(r)
+    w = torch.zeros(o, r)
+    w[owner[lab], rows[lab]] = torch.tensor([1.0, 0.5, 0.25])[
+        torch.randint(0, 3, (r,), generator=g)][lab]
+    s = 0.5 + 0.3 * torch.rand(o, r, generator=g)
+    for q in range(o):
+        mine = rows[owner == q]
+        seeds = torch.stack([mine[which[mine] == p][0] for p in range(m)]
+                            + [mine[which[mine] == p][1]
+                               for p in range(k - m)])
+        w[q, seeds] = 1.0
+        s[q, seeds] = 0.99 - 0.01 * torch.arange(k)
+    want = _masked_kmeans(pts, w, s, k, 20, mixed)
+    got = ops.masked_kmeans(pts.to(dev), w.to(dev), s.to(dev), k, 20, mixed)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_.cpu(), w_)
+    assert want[3].sum().item() == o * m
+
+
+def _kmeans_random(dev, seed, r=16384, c=100, o=11):
+    """Random points, one-hot labels over ``o`` channels with the last
+    three zeroed (``obj_valid``), uniform [0.5, 1) draws."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pts = torch.randn((r, c), generator=g, device=dev)
+    lab = torch.nn.functional.one_hot(
+        torch.randint(0, o, (r,), generator=g, device=dev), o).float()
+    lab[:, -3:] = 0.0
+    s = 0.5 + 0.5 * torch.rand((o, r), generator=g, device=dev)
+    return pts, lab, s
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_masked_kmeans_is_deterministic(dev, mixed):
+    """Two launches on the same inputs give the same bits (no
+    floating-point atomics), through ``cluster_objects`` as the model
+    calls it."""
+    pts, lab, s = _kmeans_random(dev, 7)
+    n0 = ops.masked_kmeans.launches
+    a = ops.cluster_objects(pts, lab, s, k=16, iters=20, mixed=mixed)
+    b = ops.cluster_objects(pts, lab, s, k=16, iters=20, mixed=mixed)
+    torch.cuda.synchronize()
+    assert ops.masked_kmeans.launches == n0 + 2
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_masked_kmeans_graph_replay_equals_eager(dev, mixed):
+    """A CUDA graph of one call, replayed on new inputs copied into its
+    static ones (other objects' row counts: nothing of the launch depends
+    on the data), equals the eager call bit for bit."""
+    static = [t.clone() for t in _kmeans_random(dev, 1)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.masked_kmeans(static[0], static[1].T, static[2], 16, 20, mixed)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.masked_kmeans(static[0], static[1].T, static[2], 16, 20,
+                                mixed)
+    for seed in (2, 3):
+        new = _kmeans_random(dev, seed)
+        new[1][:, 1:4] *= (torch.rand(new[1].shape[0], 1, device=dev)
+                           < 0.1 * seed).float()
+        for t, v in zip(static, new):
+            t.copy_(v)
+        graph.replay()
+        want = ops.masked_kmeans(new[0], new[1].T, new[2], 16, 20, mixed)
+        torch.cuda.synchronize()
+        for x, y in zip(out, want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("what", ["c", "k", "o", "points_dtype",
+                                  "weights_dtype", "device"])
+def test_masked_kmeans_raises_beyond_its_limits(dev, what):
+    r, c, o, k = 100, 16, 3, 4
+    c, k, o = {"c": (129, k, o), "k": (c, 33, o), "o": (c, k, 33)}.get(
+        what, (c, k, o))
+    pts = torch.randn((r, c), device=dev)
+    w = torch.zeros((o, r), device=dev)
+    w[0] = 1.0
+    s = torch.rand((o, r), device=dev)
+    if what == "points_dtype":
+        pts = pts.half()
+    elif what == "weights_dtype":
+        w = w.double()
+    elif what == "device":
+        pts, w, s = pts.cpu(), w.cpu(), s.cpu()
+    with pytest.raises(ValueError):
+        ops.masked_kmeans(pts, w, s, k, 2)
+
+
 # the kernel each bank layout's global stream launches
 _GLOBAL_KERNEL = {"occupancy": "global_seg_map", "cap0": "global_flat_min",
                   "unsegmented": "global_flat_min", "uniform": "global_seg"}

@@ -425,6 +425,44 @@ def test_kmeans_cluster_matching_with_injected_scores(rng):
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
+@pytest.mark.parametrize("mixed", [False, True])
+def test_kmeans_objects_cluster_alone(rng, mixed):
+    """The reduction the k-means kernel (``ops.cuda_kmeans``) rests on: with
+    one-hot labels, ``_masked_kmeans`` over all O channels gives each
+    object the valid banks of k-means over that object's rows alone, with
+    the same draws; rows of zero weight (k of them appended to each alone
+    run, the points of other rows) change nothing.  Objects: 170 and 120
+    rows, none, and 3 (fewer than k); 20 unlabelled rows."""
+    from rvos_tpu_torch.ops.kmeans import _masked_kmeans
+    r, c, o, k, iters = 313, 8, 4, 6, 5
+    owner = np.repeat([0, 1, 3, -1], [170, 120, 3, 20])
+    rng.shuffle(owner)
+    blob = rng.integers(0, 5, r)
+    cen = rng.standard_normal((o, 5, c)).astype(np.float32) * 4
+    emb = (cen[owner.clip(0), blob]
+           + 0.3 * rng.standard_normal((r, c)).astype(np.float32))
+    w = np.zeros((o, r), np.float32)
+    lab = owner >= 0
+    w[owner[lab], np.flatnonzero(lab)] = 1.0
+    scores = rng.uniform(0.5, 1.0, (o, r)).astype(np.float32)
+    full = _masked_kmeans(_t(emb), _t(w), _t(scores), k, iters, mixed)
+    for q in range(o):
+        mine = np.flatnonzero(owner == q)
+        extra = rng.choice(np.flatnonzero(owner != q), k, replace=False)
+        rows = np.concatenate([mine, extra])
+        wq = np.zeros((1, rows.size), np.float32)
+        wq[0, :mine.size] = 1.0
+        alone = _masked_kmeans(_t(emb[rows]), _t(wq), _t(scores[q:q + 1, rows]),
+                               k, iters, mixed)
+        cv, mv = full[1][q], full[3][q]
+        assert torch.equal(alone[1][0], cv) and torch.equal(alone[3][0], mv)
+        assert int(cv.sum()) == min(k, mine.size)
+        torch.testing.assert_close(alone[0][0][cv], full[0][q][cv],
+                                   rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(alone[2][0][mv], full[2][q][mv],
+                                   rtol=1e-6, atol=1e-6)
+
+
 def test_heads_proxies_fg2bg_entropy(rng):
     s, h, w, c, o = 2, 5, 6, 8, 3
     ref = rng.standard_normal((s, h, w, c)).astype(np.float32)
