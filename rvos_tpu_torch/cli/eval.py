@@ -39,7 +39,8 @@ import os
 
 
 def build_parser():
-    p = argparse.ArgumentParser(description="Eval AOC-Net (PyTorch port, RPA)")
+    p = argparse.ArgumentParser(description="Eval AOC-Net (PyTorch port, RPA) "
+                                "or AOT (--config aotl_mobilenetv2)")
     p.add_argument("--exp_name", type=str, default="")
     p.add_argument("--config", type=str, default="resnet101_aocnet")
     p.add_argument("--ckpt_path", type=str, default="",
@@ -195,7 +196,7 @@ def main(argv=None):
 
     from ..configs import get_config
     from ..engine import Evaluator
-    from ..models import AOCNet
+    from ..models import build_model
     from ..utils.eval_zip import zip_folder
     from ..weights import init_random_, load_reference_checkpoint
 
@@ -220,7 +221,7 @@ def main(argv=None):
                                         eval_name + "_torch", "Annotations")
     os.makedirs(out_root, exist_ok=True)
     dataset, label_root = _dataset(cfg, args, out_root)
-    model = init_random_(AOCNet(cfg),
+    model = init_random_(build_model(cfg),
                          torch.Generator().manual_seed(args.seed))
     if args.ckpt_path:
         load_reference_checkpoint(args.ckpt_path, model)

@@ -4,9 +4,11 @@ card (``torch.profiler``), chunked (CUDA graph replays) or frame by frame.
     python -m rvos_tpu_torch.cli.profile_eval [--frames 26] [--layout cap0]
         [--frame_chunk 5] [--size 481 849] [--ms 1.0 1.15 1.3 --flip]
         [--backbone mobilenet] [--matching_dtype float32] [--trace trace.json]
+        [--config aotl_mobilenetv2]
 
 Runs the main path of ``chip_smoke.py`` (the ``resnet101_aocnet``
-preset, random weights from a seed, a 3-object synthetic video; with
+preset, or ``--config``'s, e.g. ``aotl_mobilenetv2`` for AOT-L, random
+weights from a seed, a 3-object synthetic video; with
 ``--backbone mobilenet`` the MobileNetV2 backbone; with
 ``--matching_dtype float32`` parity matching, the float32 routes of the
 global kernels) under
@@ -138,8 +140,9 @@ def main(argv=None):
     p.add_argument("--flip", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trace", default="")
-    p.add_argument("--backbone", default="resnet",
-                   choices=["resnet", "mobilenet"], help="MODEL_BACKBONE")
+    p.add_argument("--backbone", default="",
+                   choices=["", "resnet", "mobilenet"],
+                   help="MODEL_BACKBONE (default: the preset's)")
     p.add_argument("--matching_dtype", default="",
                    choices=["", "float32", "mixed", "bfloat16"],
                    help="MATCHING_DTYPE (default: the preset's)")
@@ -151,12 +154,13 @@ def main(argv=None):
     from ..configs import BANK_LAYOUTS, get_config
     from ..data import SyntheticEval
     from ..engine import Evaluator
-    from ..models import AOCNet
+    from ..models import build_model
     from ..utils import trace
     from ..weights import init_random_
 
-    cfg = get_config(args.config, MODEL_BACKBONE=args.backbone,
-                     **BANK_LAYOUTS[args.layout])
+    cfg = get_config(args.config, **BANK_LAYOUTS[args.layout])
+    if args.backbone:
+        cfg = cfg.replace(MODEL_BACKBONE=args.backbone)
     if args.frame_chunk > 0:
         cfg = cfg.replace(TEST_FRAME_CHUNK=args.frame_chunk)
     if args.matching_dtype:
@@ -164,14 +168,16 @@ def main(argv=None):
     if args.flip or tuple(args.ms) != (1.0,):
         cfg = cfg.replace(TEST_FLIP=args.flip, TEST_MULTISCALE=tuple(args.ms),
                           TEST_MAX_SIZE=800.0)
-    model = init_random_(AOCNet(cfg), torch.Generator().manual_seed(args.seed))
+    model = init_random_(build_model(cfg),
+                         torch.Generator().manual_seed(args.seed))
     trace.enable()      # marks in every graph the evaluator captures; spans
     ev = Evaluator(cfg, model, device="cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     first = max(ev.chunk_n, cfg.MEM_EVERY, 1) + 1    # first steady frame
-    print(f"card: {card} | {args.backbone} | layout {args.layout} | "
+    print(f"card: {card} | {args.config} {cfg.MODEL_BACKBONE} | layout "
+          f"{args.layout} | "
           f"matching {cfg.MATCHING_DTYPE} | "
           f"frame chunk {ev.chunk_n} "
           f"| variants {len(ev.variants.flips)} (scales {cfg.TEST_MULTISCALE}, "

@@ -203,3 +203,13 @@ class Config:
             "log": os.path.join(root, "log"),
             "eval": os.path.join(root, "eval"),
         }
+
+
+@dataclass
+class AOTConfig(Config):
+    """An AOT-L configuration (``models/aot.py``, whose widths are AOT-L's
+    constants): ``Config``, which stays field for field the JAX package's,
+    under a type of its own, which ``models.build_model`` reads.  AOT
+    reads MODEL_BACKBONE ("mobilenet"), MODEL_OUTPUT_STRIDE,
+    MODEL_MAX_OBJ_NUM (the background and the objects) and MEM_EVERY (the
+    release's TEST_LONG_TERM_MEM_GAP)."""

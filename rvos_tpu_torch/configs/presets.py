@@ -6,7 +6,7 @@ Reference: ``configs/resnet101_aocnet.py`` (stage 1, 50k steps) and
 pretrain, 480p test).
 """
 
-from .base import Config
+from .base import AOTConfig, Config
 
 
 def resnet101_aocnet() -> Config:
@@ -29,6 +29,15 @@ def resnet101_aocnet_2() -> Config:
         PRETRAIN_FULL=False,
         TEST_DATASET_FULL_RESOLUTION=False,
     )
+
+
+def aotl_mobilenetv2() -> AOTConfig:
+    """AOT-L (aot-benchmark ``configs/models/aotl.py`` over
+    ``default.py``) on MobileNetV2, evaluated as the DAVIS 480p eval runs:
+    3 blocks, long-term memory every 5 frames, 10 objects and the
+    background, bf16 compute, chunks of 5 as CUDA graphs."""
+    return AOTConfig(EXP_NAME="aotl", MODEL_BACKBONE="mobilenet",
+                     MODEL_MAX_OBJ_NUM=11, MEM_EVERY=5)
 
 
 def tiny_test(**kw) -> Config:
@@ -65,6 +74,7 @@ BANK_LAYOUTS = {
 
 
 PRESETS = {
+    "aotl_mobilenetv2": aotl_mobilenetv2,
     "resnet101_aocnet": resnet101_aocnet,
     "resnet101_aocnet_2": resnet101_aocnet_2,
     "tiny_test": tiny_test,

@@ -9,7 +9,8 @@
 // stream.
 //
 // Bound: launch latency alone (one thread, no memory traffic), a few
-// microseconds of device time each, about seven a frame.  The kernels
+// microseconds of device time each, about seven a frame (AOT's frames
+// add rvos_mark_lstt before the transformer).  The kernels
 // are extern "C" so that their records carry the bare names
 // rvos_mark_<stage>; the order of the switch is utils/trace.py's STAGES.
 
@@ -22,6 +23,7 @@ extern "C" __global__ void rvos_mark_match() {}
 extern "C" __global__ void rvos_mark_kmeans() {}
 extern "C" __global__ void rvos_mark_decode() {}
 extern "C" __global__ void rvos_mark_post() {}
+extern "C" __global__ void rvos_mark_lstt() {}
 
 // Launch stage `stage`'s mark on `stream`; returns cudaGetLastError().
 extern "C" int rvos_mark_launch(int stage, void* stream) {
@@ -34,6 +36,7 @@ extern "C" int rvos_mark_launch(int stage, void* stream) {
     case 4: rvos_mark_kmeans<<<1, 1, 0, s>>>(); break;
     case 5: rvos_mark_decode<<<1, 1, 0, s>>>(); break;
     case 6: rvos_mark_post<<<1, 1, 0, s>>>(); break;
+    case 7: rvos_mark_lstt<<<1, 1, 0, s>>>(); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

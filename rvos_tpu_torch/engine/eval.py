@@ -56,6 +56,32 @@ The pipeline is the JAX evaluator's default one:
   ``TEST_D2H_GROUP``) and are remapped and written by a thread
   (``MaskSaver``).
 
+AOT (``models/aot.py``, a model whose ``kind`` is ``"aot"``; one variant,
+one device) runs through the same loader, ``Chunker``, chunk graphs,
+``D2HBatcher`` and post-processing with a state of its own.  A model
+family is a ``_Family`` (its frame 0, the preparation of a state before
+a step and its chunk step: ``_AOC``, ``_AOT``), which the evaluator picks
+once, at construction, and a state class, which the pipeline reads
+through ``score_rows`` (the k-means rows a step draws), ``remember()``
+(the last frame joins the memory) and ``one_frame_graph`` (whether a
+ragged frame replays a one-frame graph).  AOT's state (``_AOTState``)
+holds per LSTT block a long-term memory of frame 0 and every
+``MEM_EVERY``-th frame (and every join frame), preallocated for
+``_AOTState.CAPACITY`` frames and doubled when a video outgrows it, and
+a short-term memory, the previous frame's keys and values.  Frame 0
+runs AOT's reference pass on its ground truth; a later frame attends the
+memory and is decoded, its mask is the argmax over the labels given so
+far (no entropy gate: AOT writes its argmax), and it writes its keys and
+values as the next frame's short-term memory; the long-term memory
+appends them between chunks, as the AOC bank appends a frame.  One graph
+per chunk kind serves every memory length: the long-term attention reads
+the valid length from a device tensor
+(``ops.attention.memory_attention``).  AOT's ragged frames replay a
+one-frame graph (``frame_replays``): run eagerly they are launch-bound,
+twice a graph frame's time.  AOC-Net's stay eager: its step is the same
+function and could take the same graph, which would change what its
+eval measures, so that is left to a change of its own.
+
 The k-means init scores are the JAX evaluator's own draws
 (``ops.prng``: threefry, ``fold_in(PRNGKey(42), frame)``, split over
 the objects, uniform in [0.5, 1)), drawn on the evaluator's device
@@ -103,6 +129,7 @@ from ..data.transforms import (IMAGENET_MEAN, IMAGENET_STD, eval_variants,
                                frame_u8, variant_list)
 from ..device import compute_dtype, configure_precision, resolve_device
 from ..models import AOCNet, DecoderMemory, precompact_bank
+from ..models.aot import D_MODEL, LSTT_NUM
 from ..ops.entropy import shannon_entropy
 from ..ops.prng import kmeans_init_scores
 from ..ops.resize import resize_nchw
@@ -176,6 +203,8 @@ class _SeqState:
     size) and reuses it video after video, with the graphs captured on
     the first variant's state."""
 
+    one_frame_graph = False     # a ragged frame runs eagerly
+
     def __init__(self, cfg: Config, h: int, w: int, c: int, dtype, device):
         cap, o = cfg.TEST_BANK_CAPACITY, cfg.MODEL_MAX_OBJ_NUM
         self.capacity = cap
@@ -198,6 +227,20 @@ class _SeqState:
     def carried(self) -> Tuple[torch.Tensor, ...]:
         """The tensors the chunk step advances."""
         return (self.prev_emb, self.prev_lab, *self.memory)
+
+    @property
+    def lab_hw(self) -> Tuple[int, int]:
+        """The size of the labels the state keeps (its embedding's)."""
+        return tuple(self.prev_lab.shape)
+
+    @property
+    def score_rows(self) -> int:
+        """The k-means init scores' rows a step reads: the flat bank's."""
+        return self.flat[0].shape[0]
+
+    def remember(self):
+        """The last frame joins the bank (its confident mask)."""
+        self.add_ref(self.prev_emb, self.conf)
 
     def start(self, emb, lab):
         for t in (self.ref_emb, self.ref_lab, self.slot_valid, *self.memory):
@@ -234,6 +277,66 @@ class _SeqState:
                              for t in self.flat)
         new.graphs = {}
         return new
+
+
+class _AOTState:
+    """Streaming state of a video for AOT at one token grid (see the
+    module's docstring): ``lt_k``/``lt_v`` [L, capacity·n, d], the first
+    ``frames``·n rows valid and ``cu_k`` = [0, valid rows] on the device
+    (what the graphs read); ``st_k``/``st_v`` [L, n, d].  Like
+    ``_SeqState`` it is reused video after video and holds the graphs;
+    a growth of the capacity drops them (they read the old tensors)."""
+
+    CAPACITY = 24           # long-term frames preallocated (DAVIS: 21)
+    one_frame_graph = True  # a ragged frame replays a one-frame graph
+    score_rows = 0          # no k-means
+
+    def __init__(self, grid: Tuple[int, int], lab_hw: Tuple[int, int],
+                 dtype, device):
+        n_layers, d = LSTT_NUM, D_MODEL
+        self.grid, self.n, self.lab_hw = grid, grid[0] * grid[1], lab_hw
+        self.capacity = self.CAPACITY
+        self.lt_k = torch.zeros((n_layers, self.capacity * self.n, d),
+                                dtype=dtype, device=device)
+        self.lt_v = torch.zeros_like(self.lt_k)
+        self.cu_k = torch.zeros(2, dtype=torch.int32, device=device)
+        self.frames = 0
+        self.st_k = torch.zeros((n_layers, self.n, d), dtype=dtype,
+                                device=device)
+        self.st_v = torch.zeros_like(self.st_k)
+        self.graphs: Dict = {}
+
+    def carried(self) -> Tuple[torch.Tensor, ...]:
+        return (self.st_k, self.st_v)
+
+    def start(self, k, v):
+        """Frame 0's keys and values open both memories."""
+        self.frames = 0
+        self.st_k.copy_(k)
+        self.st_v.copy_(v)
+        self.remember()
+
+    def remember(self):
+        """The last frame's keys and values join the long-term memory."""
+        trace.stage("pipeline.bank", self.lt_k.device)
+        if self.frames == self.capacity:
+            self._grow()
+        lo, hi = self.frames * self.n, (self.frames + 1) * self.n
+        self.lt_k[:, lo:hi].copy_(self.st_k)
+        self.lt_v[:, lo:hi].copy_(self.st_v)
+        self.frames += 1
+        self.cu_k[1].fill_(hi)
+
+    def _grow(self):
+        rows = self.frames * self.n
+        for name in ("lt_k", "lt_v"):
+            old = getattr(self, name)
+            new = old.new_zeros((old.shape[0], 2 * old.shape[1],
+                                 old.shape[2]))
+            new[:, :rows].copy_(old[:, :rows])
+            setattr(self, name, new)
+        self.capacity *= 2
+        self.graphs.clear()
 
 
 class _ChunkGraph:
@@ -408,8 +511,13 @@ class Evaluator:
             d == self.device for d in self.cp_devices or ())
         self._pinned = _PinnedFrames() if on_card else None
         self._pool = torch.cuda.graph_pool_handle() if on_card else None
+        self._family = _AOT if getattr(model, "kind", None) == "aot" else _AOC
+        if self._family is _AOT and (len(self.variants.flips) > 1
+                                     or self.cp_devices is not None):
+            raise ValueError("AOT runs one variant on one device")
         self.captures = 0            # CUDA graphs captured
         self.replays = 0             # chunk graph replays
+        self.frame_replays = 0       # one-frame graph replays
         self._last_states: List[_SeqState] = []   # introspection
 
     def _mem_boundary(self, frame_idx: int) -> bool:
@@ -455,7 +563,10 @@ class Evaluator:
 
     def init_scores(self, frames: Sequence[int], n_rows: int) -> torch.Tensor:
         """The k-means init scores of consecutive ``frames`` → [K, O,
-        n_rows] on the device."""
+        n_rows] on the device (no rows for a model without k-means)."""
+        if n_rows == 0:
+            return torch.empty((len(frames), self.cfg.MODEL_MAX_OBJ_NUM, 0),
+                               device=self.device)
         if self.kmeans_scores is None:
             return self._draws.take(frames, n_rows)
         o = self.cfg.MODEL_MAX_OBJ_NUM
@@ -518,11 +629,45 @@ class Evaluator:
         orientation (nearest)."""
         if self.variants.flips[v]:
             lab = lab.flip(1)
-        return resize_nchw(lab, tuple(st.prev_lab.shape), "nearest")
+        return resize_nchw(lab, st.lab_hw, "nearest")
 
-    def _start(self, frames, gt: np.ndarray) -> List[_SeqState]:
-        """Frame 0: each variant's embedding and the ground truth (at the
-        variant's resolution and orientation) open its bank."""
+    def _encode(self, frames: torch.Tensor) -> List[torch.Tensor]:
+        """AOT: uint8 [K, H, W, 3] → the encoder's taps."""
+        trace.stage("model.extract", frames.device)
+        x = ((frames.float() / 255.0 - self._mean) / self._std)
+        return self.model.encode(x.permute(0, 3, 1, 2).to(self.dtype))
+
+    def _start_aot(self, frames, gt: np.ndarray) -> List[_AOTState]:
+        """AOT's frame 0: the reference pass on the ground truth writes
+        both memories."""
+        trace.stage("pipeline.upload", self.device)
+        (x,) = self._upload_groups([frames])
+        taps = self._encode(x)
+        grid, lab_hw = tuple(taps[-1].shape[-2:]), tuple(x.shape[1:3])
+        key = ("aot", grid, lab_hw, self.device)
+        st = self._states.get(key)
+        if st is None:
+            st = self._states[key] = _AOTState(grid, lab_hw, self.dtype,
+                                               self.device)
+        trace.stage("pipeline.bank", self.device)
+        lab = resize_nchw(torch.from_numpy(gt.astype(np.int64)).to(
+            self.device), lab_hw, "nearest")
+        id_emb = self._id_embed(lab)
+        trace.stage("model.lstt", self.device)
+        _, qs, us = self.model.lstt(taps[-1][0], id_emb=id_emb)
+        trace.stage("pipeline.bank", self.device)
+        st.start(*self.model.memory_kv(qs, us, id_emb))
+        return [st]
+
+    def _id_embed(self, lab: torch.Tensor) -> torch.Tensor:
+        """AOT: a label map at the input size → its identity tokens."""
+        o = self.cfg.MODEL_MAX_OBJ_NUM
+        onehot = one_hot(lab, o, self.dtype).permute(2, 0, 1)[None]
+        return self.model.id_embed(onehot)[0]
+
+    def _start_aoc(self, frames, gt: np.ndarray) -> List[_SeqState]:
+        """AOC-Net's frame 0: each variant's embedding and the ground truth
+        (at the variant's resolution and orientation) open its bank."""
         trace.stage("pipeline.upload", self.device)
         xs = self._upload_groups([frames])
         lab = torch.from_numpy(gt.astype(np.int64)).to(self.device)
@@ -614,7 +759,13 @@ class Evaluator:
         ``conf``.  ``join`` [H0, W0] is spliced into the mask and the
         confident mask (a one-frame step).  The JAX ``_step_fused_chunk``
         for one variant and ``_step_ensemble_chunk`` for several; what a
-        CUDA graph of this function captures."""
+        CUDA graph of this function captures: the model family's step
+        (``_chunk_step_aoc`` or ``_chunk_step_aot``)."""
+        self._family.step(self, io, sts, ori_hw, join)
+
+    def _chunk_step_aoc(self, io: ChunkIO, sts: List[_SeqState], ori_hw,
+                        join: Optional[torch.Tensor] = None) -> None:
+        """``chunk_step`` for AOC-Net."""
         o = self.cfg.MODEL_MAX_OBJ_NUM
         flips = self.variants.flips
         n_var = len(sts)
@@ -653,12 +804,39 @@ class Evaluator:
                 dst.copy_(src)
             st.conf.copy_(self._downscale(conf, v, st))
 
+    def _chunk_step_aot(self, io: ChunkIO, sts: List[_AOTState], ori_hw,
+                        join: Optional[torch.Tensor] = None) -> None:
+        """``chunk_step`` for AOT: per frame the blocks over the memory,
+        the decoder, the mask, and its keys and values as the next
+        frame's short-term memory; ``st.st_k``/``st_v`` end as the last
+        frame's."""
+        model, (st,) = self.model, sts
+        taps = self._encode(io.frames[0])
+        sk, sv = st.st_k, st.st_v
+        lt = (st.lt_k, st.lt_v, st.cu_k)
+        for k in range(io.frames[0].shape[0]):
+            trace.stage("model.lstt", self.device)
+            outs, qs, us = model.lstt(taps[-1][k], lt, (sk, sv))
+            trace.stage("model.decode", self.device)
+            logits = model.decode([t[k:k + 1] for t in taps], outs)
+            trace.stage("pipeline.post", self.device)
+            pred = (self._probs(logits, ori_hw, 0)
+                    * io.em[:, None, None]).argmax(dim=0)
+            if join is not None:
+                pred = torch.where(join == 0, pred, join)
+            io.preds[k].copy_(pred)
+            trace.stage("pipeline.bank", self.device)
+            sk, sv = model.memory_kv(qs, us, self._id_embed(
+                self._downscale(pred, 0, st)))
+        st.st_k.copy_(sk)
+        st.st_v.copy_(sv)
+
     def _new_io(self, sts: List[_SeqState], shapes, ori_hw) -> ChunkIO:
         """Static buffers of a chunk graph; ``shapes`` [K, H, W, 3] per
         scale group."""
         o, dev = self.cfg.MODEL_MAX_OBJ_NUM, self.device
         k_n = shapes[0][0]
-        n_rows = max(st.flat[0].shape[0] for st in sts)
+        n_rows = max(st.score_rows for st in sts)
         return ChunkIO(
             tuple(torch.empty(sh, dtype=torch.uint8, device=dev)
                   for sh in shapes),
@@ -744,13 +922,13 @@ class Evaluator:
     def run_chunk(self, sts: List[_SeqState], io: ChunkIO, ori_hw,
                   join: Optional[torch.Tensor] = None) -> None:
         """One step over the frames of ``io``: for a multi-frame chunk on a
-        card a replay of the graph that owns ``io`` (captured at its first
-        use), else ``chunk_step`` eagerly; a frame of the sharded ensemble
-        through ``sharded_step``."""
+        card (for AOT, a single frame too) a replay of the graph that owns
+        ``io`` (captured at its first use), else ``chunk_step`` eagerly; a
+        frame of the sharded ensemble through ``sharded_step``."""
         if self.ens_devices is not None:
             self.sharded_step(io, sts, ori_hw, join)
             return
-        if not self._graphs or io.frames[0].shape[0] == 1:
+        if not self._graphed(sts, io.frames[0].shape[0], join):
             self.chunk_step(io, sts, ori_hw, join)
             return
         g = sts[0].graphs[(tuple(tuple(x.shape) for x in io.frames),
@@ -761,23 +939,34 @@ class Evaluator:
         if g.graph is None:
             g.graph = self._capture(io, sts, ori_hw)
         g.graph.replay()
-        self.replays += 1
+        if io.frames[0].shape[0] > 1:
+            self.replays += 1
+        else:
+            self.frame_replays += 1
+
+    def _graphed(self, sts, k_n: int, join) -> bool:
+        """Whether a step of ``k_n`` frames replays a graph: a chunk on a
+        card, a single frame where the states' ``one_frame_graph`` says
+        so, never a join."""
+        return (self._graphs and join is None
+                and (k_n > 1 or sts[0].one_frame_graph))
 
     def _step(self, sts: List[_SeqState], buf, ctx,
               join: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Frames ``buf`` (``(index, name, group frames)``) as one step →
-        their masks [K, H0, W0] uint8 (a graph's output buffer: copy
-        before the next step).  A multi-frame chunk on a card fills the
-        static buffers of its graph (the states' set of graphs lives on
-        the first variant's state); anything else runs on fresh ones."""
+        their masks [K, H0, W0] uint8 (a multi-frame chunk's is a graph's
+        output buffer: copy before the next step).  A step that replays a
+        graph (``_graphed``) fills the static buffers of its graph (the
+        states' set of graphs lives on the first variant's state);
+        anything else runs on fresh ones."""
         trace.stage("pipeline.upload", self.device)
         items = [p for _, _, p in buf]
         fs = [f for f, _, _ in buf]
         ori_hw = ctx["ori_hw"]
-        n_rows = max(st.flat[0].shape[0] for st in sts)
-        scores = self.init_scores(fs, n_rows)
+        scores = self.init_scores(fs, max(st.score_rows for st in sts))
         ov, em = self._dev_vec(ctx["ov"]), self._dev_vec(ctx["em"])
-        if not self._graphs or len(buf) == 1:
+        graphed = self._graphed(sts, len(buf), join)
+        if not graphed:
             io = ChunkIO(self._upload_groups(items), scores, ov, em,
                          torch.empty((len(buf), *ori_hw), dtype=torch.uint8,
                                      device=self.device))
@@ -793,6 +982,9 @@ class Evaluator:
             for dst, src in zip(io[1:4], (scores, ov, em)):
                 dst.copy_(src)
         self.run_chunk(sts, io, ori_hw, join)
+        if graphed and len(buf) == 1:
+            # a single frame waits in the D2H batcher past the next replay
+            return io.preds.clone()
         return io.preds
 
     def _grouped(self, groups):
@@ -844,11 +1036,11 @@ class Evaluator:
         def ensure_flat(ov_np):
             with trace.span("pipeline.flat", timing, "flat"):
                 for st in states:
-                    self._ensure_flat(st, ov_np)
+                    self._family.prepare(self, st, ov_np)
 
         def add_refs():
             for st in states:
-                st.add_ref(st.prev_emb, st.conf)
+                st.remember()
 
         def run_full(buf, ctx):
             with trace.span("pipeline.step.full", timing, "step_dispatch"):
@@ -901,7 +1093,7 @@ class Evaluator:
                 frames = sample["frames"]
                 if frame_idx == 0:
                     with trace.span("pipeline.start"):
-                        states = self._start(frames, gt)
+                        states = self._family.start(self, frames, gt)
                     callback(0)
                     continue
                 ov_np = (np.arange(o) <= int(meta["obj_num"])).astype(
@@ -960,3 +1152,18 @@ class Evaluator:
                       f"Seq: {total_sfps / (i + 1):.2f}")
         return {"per_seq_fps": per_seq,
                 "total_fps": total_frames / max(total_time, 1e-6)}
+
+
+class _Family(NamedTuple):
+    """A model family's part of the evaluator: its frame 0 (→ its
+    states), the preparation of a state before a step, and its chunk
+    step, each called with the evaluator first."""
+    start: Callable
+    prepare: Callable
+    step: Callable
+
+
+_AOC = _Family(Evaluator._start_aoc, Evaluator._ensure_flat,
+               Evaluator._chunk_step_aoc)
+_AOT = _Family(Evaluator._start_aot, lambda ev, st, ov_np: None,  # no bank
+               Evaluator._chunk_step_aot)

@@ -3,7 +3,10 @@ the reference's alternative to ResNet-101 (``MODEL_BACKBONE="mobilenet"``).
 
 Inverted-residual tower at output stride 16: once the stride reaches 16,
 a block's stride becomes dilation.  Returns the 320-channel features and
-the 24-channel stride-4 stage as the low-level pair.  Module names are
+the 24-channel stride-4 stage as the low-level pair.  AOT's encoder
+(``models/aot.py``) is the same tower with ``last_channel=1280`` (a 1×1
+ConvBN-relu6 after the last block, aot-benchmark's
+``networks/encoders/mobilenetv2.py``) read through ``taps``.  Module names are
 the JAX package's (``stem``, ``block_{i}`` with ``expand``, ``depthwise``,
 ``project``, ``project_bn``), so ``weights.from_jax_params`` maps its
 parameters with the generic rule; a flax depthwise kernel
@@ -13,7 +16,7 @@ with ``groups=hidden``.  Batch norms are frozen, as in the ResNet.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -65,13 +68,17 @@ class InvertedResidual(nn.Module):
 
 class MobileNetV2(nn.Module):
     """[N, 3, H, W] → (features [N, 320, H/16, W/16], low-level
-    [N, 24, H/4, W/4])."""
+    [N, 24, H/4, W/4]).  With ``last_channel`` a 1×1 ConvBN-relu6 from 320
+    to that width (``head``) follows the last block; only ``taps`` runs
+    it."""
 
-    def __init__(self, output_stride: int = 16):
+    def __init__(self, output_stride: int = 16,
+                 last_channel: Optional[int] = None):
         super().__init__()
         self.stem = _ConvBN(3, 32, 3, 2)
         stride, dilation, in_ch, idx = 2, 1, 32, 0
         self.low_level_block = None
+        taps = []
         for t, c, n, s in _STAGES:
             for i in range(n):
                 st = s if i == 0 else 1
@@ -86,7 +93,12 @@ class MobileNetV2(nn.Module):
                 idx += 1
             if c == 24:
                 self.low_level_block = idx - 1
+            if c in (24, 32, 96):
+                taps.append(idx - 1)
         self.n_blocks = idx
+        self.tap_blocks = tuple(taps)
+        self.head = (None if last_channel is None
+                     else _ConvBN(in_ch, last_channel, 1))
 
     def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
         x = self.stem(x)
@@ -96,3 +108,15 @@ class MobileNetV2(nn.Module):
             if i == self.low_level_block:
                 low = x
         return x, low
+
+    def taps(self, x) -> List[torch.Tensor]:
+        """[N, 3, H, W] → the last block's outputs of the 24-, 32- and
+        96-channel stages (strides 4, 8, 16) and ``head`` over the last
+        block (stride 16)."""
+        x = self.stem(x)
+        out = []
+        for i in range(self.n_blocks):
+            x = getattr(self, f"block_{i}")(x)
+            if i in self.tap_blocks:
+                out.append(x)
+        return out + [self.head(x)]

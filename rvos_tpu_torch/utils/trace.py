@@ -42,7 +42,7 @@ import torch
 from ..ops import _cuda
 
 STAGES = ("pipeline.upload", "pipeline.bank", "model.extract", "model.match",
-          "model.kmeans", "model.decode", "pipeline.post")
+          "model.kmeans", "model.decode", "pipeline.post", "model.lstt")
 _INDEX = {s: i for i, s in enumerate(STAGES)}
 MARK = re.compile(r"\brvos_mark_([a-z]+)\b")
 _BY_MARK = {s.split(".", 1)[1]: s for s in STAGES}

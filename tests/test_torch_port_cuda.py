@@ -1147,3 +1147,105 @@ def test_nccl_step_of_one_rank(dev):
         assert torch.equal(nccl["grads"][name], grad), name
     assert abs(float(nccl["loss"]) - float(plain["loss"])) <= 1e-5 * abs(
         float(plain["loss"]))
+
+
+# AOT-L at its published widths on a 16×28 token grid (240×432 frames),
+# with the benchmark's random weights
+def _aot_run(cfg, video, graphs=True):
+    """``video`` through the card's evaluator → (evaluator, masks, the
+    weights as float32)."""
+    import json
+    from benchmark.drivers.aot_videos import make_aot_state
+    from benchmark.drivers.eval_videos import _Seq
+    from rvos_tpu_torch.models import build_model
+    model = build_model(cfg)
+    conf = json.load(open("benchmark/configs/aotl_mobilenetv2.json"))
+    sd = make_aot_state({n: t.shape for n, t in model.state_dict().items()},
+                        5, "cuda", conf["config"], _aot_video(3, seed=12))
+    model.load_state_dict(sd)
+    ev = Evaluator(cfg, model, device="cuda")
+    ev._graphs = graphs
+    out = ev.evaluate_sequence(_Seq(video))
+    masks = {int(k.split(".")[0]): v for k, v in out["results"].items()}
+    return ev, masks, sd
+
+
+def _aot_video(n_frames=12, seed=11):
+    from benchmark.harness.videos import render
+    return render([n_frames, 3, [0, 0, 0]], (240, 432), seed, 0, "cuda",
+                  "v")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_aot_on_card_matches_reference(dev, dtype):
+    """AOT-L through the card's evaluator (chunk graphs, the flash
+    long-term attention in bf16, the masked one in float32) against the
+    plain float32 reference following its masks over a 12-frame video
+    (two memory boundaries): in float32 every pixel's label is within
+    1e-3 of the reference's best (summation order only, TF32 off); in
+    bf16 the cell's limits hold."""
+    import json
+    from benchmark.reference.aot import check_video
+    from benchmark.reference.video import Scores
+    from rvos_tpu_torch.configs import get_config
+    from rvos_tpu_torch.device import tf32_off
+    cfg = get_config("aotl_mobilenetv2", EVAL_COMPUTE_DTYPE=dtype,
+                     MATCHING_DTYPE="float32" if dtype == "float32"
+                     else "mixed")
+    video = _aot_video()
+    with tf32_off():
+        ev, masks, sd = _aot_run(cfg, video)
+    assert ev.replays == 2 and ev._last_states[0].frames == 3
+    ref_cfg = json.load(open("benchmark/configs/aotl_mobilenetv2.json"))
+    scores = Scores()
+    check_video(sd, ref_cfg["config"], video.frames, video.labels, masks,
+                "cuda", scores)
+    s = scores.summary()
+    print(dtype, s)
+    if dtype == "float32":
+        assert s["gap_max"] <= 1e-3, s
+    else:
+        limits = json.load(open("benchmark/cells/aotl.davis.json"))["limits"]
+        assert all(s[k] <= v for k, v in limits.items()), s
+
+
+def test_aot_graph_replay_equals_eager(dev):
+    """The chunk graphs (and the one-frame graph of the ragged frame 11)
+    against the same steps run eagerly: masks and memories equal bit for
+    bit."""
+    from rvos_tpu_torch.configs import get_config
+    cfg = get_config("aotl_mobilenetv2")
+    video = _aot_video()
+    (ev_g, m_g, _), (ev_e, m_e, _) = (_aot_run(cfg, video, g)
+                                      for g in (True, False))
+    assert (ev_g.replays, ev_g.frame_replays, ev_e.replays) == (2, 1, 0)
+    for f in m_g:
+        assert np.array_equal(m_g[f], m_e[f]), f
+    a, b = ev_g._last_states[0], ev_e._last_states[0]
+    for x, y in ((a.st_k, b.st_k), (a.st_v, b.st_v), (a.lt_k, b.lt_k),
+                 (a.lt_v, b.lt_v)):
+        assert torch.equal(x, y)
+
+
+def test_aot_capacity_growth_mid_video(dev, monkeypatch):
+    """A one-frame long-term capacity grows at frames 5 and 10 (the
+    graphs recaptured after each growth) and gives the masks and memories
+    of a capacity that never grows, bit for bit: the flash attention
+    stops at the valid length."""
+    from rvos_tpu_torch.configs import get_config
+    from rvos_tpu_torch.engine.eval import _AOTState
+    cfg = get_config("aotl_mobilenetv2")
+    video = _aot_video(16)
+    runs = []
+    for c in (1, 8):
+        monkeypatch.setattr(_AOTState, "CAPACITY", c)
+        runs.append(_aot_run(cfg, video))
+    (ev1, m1, _), (ev8, m8, _) = runs
+    s1, s8 = ev1._last_states[0], ev8._last_states[0]
+    assert (s1.capacity, s8.capacity, s1.frames) == (4, 8, 4)
+    assert ev1.captures == 3 and ev8.captures == 1
+    assert ev1.replays == ev8.replays == 3
+    for f in m1:
+        assert np.array_equal(m1[f], m8[f]), f
+    rows = s1.frames * s1.n
+    assert torch.equal(s1.lt_v[:, :rows], s8.lt_v[:, :rows])

@@ -129,7 +129,7 @@ def test_step_spans_are_the_evaluators_steps(tiny, monkeypatch):
         assert anc is video_span
     assert sum(s.name == "pipeline.start" for s in log) == 1
 
-    assert set(stages) == set(trace.STAGES)
+    assert set(stages) == set(trace.STAGES) - {"model.lstt"}    # AOT's
     for i, name in enumerate(stages):
         if name == "model.kmeans":
             assert stages[i - 1:i + 4] == [
