@@ -40,9 +40,10 @@ The pipeline is the JAX evaluator's default one:
   entropy gate and the nearest downscales, carrying each variant's
   previous labels and decoder memory from frame to frame.  On CUDA the
   step is a ``torch.cuda.CUDAGraph``, captured once per (K, frame
-  shapes, original size) of a set of states and replayed for every full
-  chunk; on the CPU the same function runs eagerly.  Ragged cuts and
-  ``TEST_FRAME_CHUNK <= 1`` run it one frame at a time, eagerly;
+  shapes, original size, live channels) of a set of states and replayed
+  for every full chunk; on the CPU the same function runs eagerly.
+  Ragged cuts and ``TEST_FRAME_CHUNK <= 1`` run it one frame at a time,
+  eagerly;
 * a join frame runs alone through the same step, its label spliced into
   the mask and the confident mask, and every bank appends.  Under
   ``TEST_FUSED_POSTPROCESS=False`` every frame runs alone this way: the
@@ -55,6 +56,23 @@ The pipeline is the JAX evaluator's default one:
 * masks leave the card as one copy per block (``D2HBatcher``, grouped by
   ``TEST_D2H_GROUP``) and are remapped and written by a thread
   (``MaskSaver``).
+
+AOC-Net decodes a video's live object channels only: the background and
+objects 1 to the largest object count the sequence lists up front, else
+frame 0's (``live_channels``).  The pre-head and the calibration decoder
+run with those channels as their batch (``segment_frame(..., live=n)``);
+the other channels' logits are −1e9, as a dead channel's are in a decode
+of all ``MODEL_MAX_OBJ_NUM``, and their decoder memory keeps the zeros a
+video starts with.  Every decoder op is per object or masks by
+``obj_valid``, so the masks are those of the decode of all channels, up
+to the rounding of kernels chosen for another batch size.  A channel that
+joins within the count is decoded as a dead channel until it joins, as
+there.  A frame whose ``obj_num`` passes the count (a sequence that does
+not list its counts) sends the rest of its video through all channels;
+the grown channels' decoder memory then starts from zeros, where the
+decode of all channels carries what their dead decode left — the one
+place where the masks can differ from it.  ``decoded_channels`` counts
+the channels decoded, over frames and variants.
 
 AOT (``models/aot.py``, a model whose ``kind`` is ``"aot"``; one variant,
 one device) runs through the same loader, ``Chunker``, chunk graphs,
@@ -158,6 +176,7 @@ class ChunkIO(NamedTuple):
     ov: torch.Tensor        # [O] obj_valid
     em: torch.Tensor        # [O] exist_mask
     preds: torch.Tensor     # [K, H0, W0] uint8 (output)
+    live: Optional[int]     # object channels decoded (None: all O)
 
     def copy_to(self, device) -> "ChunkIO":
         """Copies of the inputs on ``device`` and a fresh output."""
@@ -165,7 +184,7 @@ class ChunkIO(NamedTuple):
                        *(t.to(device, copy=True)
                          for t in (self.scores, self.ov, self.em)),
                        torch.empty(self.preds.shape, dtype=self.preds.dtype,
-                                   device=device))
+                                   device=device), self.live)
 
 
 class Variants(NamedTuple):
@@ -241,6 +260,16 @@ class _SeqState:
     def remember(self):
         """The last frame joins the bank (its confident mask)."""
         self.add_ref(self.prev_emb, self.conf)
+
+    def carry(self, emb, lab, memory: DecoderMemory):
+        """A step's last frame becomes the previous one: its embedding,
+        labels and decoder memory, whose slots fill the first channels
+        (a decode of the live channels leaves the others as they are)."""
+        live = memory.slots.shape[1]
+        self.prev_emb.copy_(emb)
+        self.prev_lab.copy_(lab)
+        self.memory.slots[:, :live].copy_(memory.slots)
+        self.memory.valid.copy_(memory.valid)
 
     def start(self, emb, lab):
         for t in (self.ref_emb, self.ref_lab, self.slot_valid, *self.memory):
@@ -518,6 +547,7 @@ class Evaluator:
         self.captures = 0            # CUDA graphs captured
         self.replays = 0             # chunk graph replays
         self.frame_replays = 0       # one-frame graph replays
+        self.decoded_channels = 0    # object channels decoded, × frames
         self._last_states: List[_SeqState] = []   # introspection
 
     def _mem_boundary(self, frame_idx: int) -> bool:
@@ -715,11 +745,11 @@ class Evaluator:
         st.flat_key = key
 
     def _segment(self, st: _SeqState, emb, low, prev_emb, prev_lab, ov,
-                 memory, scores, ref_onehot=None, model=None):
+                 memory, scores, live, ref_onehot=None, model=None):
         """One variant's ``segment_frame`` from its state → (logits
-        [O, h, w], decoder memory), by ``model`` (the evaluator's).
-        ``scores`` [O, R'] is read as a prefix as long as the variant's
-        bank."""
+        [O, h, w], decoder memory of ``live`` channels), by ``model``
+        (the evaluator's).  ``scores`` [O, R'] is read as a prefix as long
+        as the variant's bank."""
         o = self.cfg.MODEL_MAX_OBJ_NUM
         flat_emb, flat_lab, tile_obj = st.flat
         if ref_onehot is None:
@@ -728,7 +758,8 @@ class Evaluator:
         return (model or self.model).segment_frame(
             emb, low, st.ref_emb, ref_onehot, st.slot_valid, prev_emb,
             one_hot(prev_lab, o, self.dtype), ov, memory,
-            scores[:, :flat_emb.shape[0]], flat_emb, flat_lab, tile_obj, **cp)
+            scores[:, :flat_emb.shape[0]], flat_emb, flat_lab, tile_obj,
+            live=live, **cp)
 
     def _probs(self, logits, ori_hw, v: int) -> torch.Tensor:
         """Logits → probabilities at the original size, orientation
@@ -789,7 +820,8 @@ class Evaluator:
             for v in range(n_var):
                 logits, mems[v] = self._segment(
                     sts[v], embs[v][k], lows[v][k], prev_embs[v][k],
-                    p_labs[v], io.ov, mems[v], io.scores[k], ref_onehots[v])
+                    p_labs[v], io.ov, mems[v], io.scores[k], io.live,
+                    ref_onehots[v])
                 trace.stage("pipeline.post", self.device)
                 p = self._probs(logits, ori_hw, v)
                 total = p if total is None else total + p
@@ -799,9 +831,7 @@ class Evaluator:
             p_labs = [self._downscale(pred, v, st) for v, st in enumerate(sts)]
             io.preds[k].copy_(pred)
         for v, st in enumerate(sts):
-            for dst, src in zip(st.carried(),
-                                (embs[v][-1], p_labs[v], *mems[v])):
-                dst.copy_(src)
+            st.carry(embs[v][-1], p_labs[v], mems[v])
             st.conf.copy_(self._downscale(conf, v, st))
 
     def _chunk_step_aot(self, io: ChunkIO, sts: List[_AOTState], ori_hw,
@@ -831,7 +861,8 @@ class Evaluator:
         st.st_k.copy_(sk)
         st.st_v.copy_(sv)
 
-    def _new_io(self, sts: List[_SeqState], shapes, ori_hw) -> ChunkIO:
+    def _new_io(self, sts: List[_SeqState], shapes, ori_hw,
+                live: Optional[int]) -> ChunkIO:
         """Static buffers of a chunk graph; ``shapes`` [K, H, W, 3] per
         scale group."""
         o, dev = self.cfg.MODEL_MAX_OBJ_NUM, self.device
@@ -842,7 +873,7 @@ class Evaluator:
                   for sh in shapes),
             torch.empty((k_n, o, n_rows), device=dev),
             torch.empty(o, device=dev), torch.empty(o, device=dev),
-            torch.empty((k_n, *ori_hw), dtype=torch.uint8, device=dev))
+            torch.empty((k_n, *ori_hw), dtype=torch.uint8, device=dev), live)
 
     def _capture(self, io: ChunkIO, sts: List[_SeqState], ori_hw):
         """Capture ``chunk_step`` on ``sts`` as a CUDA graph.  A warm-up
@@ -899,7 +930,7 @@ class Evaluator:
                 st = sts[v]
                 logits, mem = self._segment(st, e[j], low[j], st.prev_emb,
                                             st.prev_lab, ov, st.memory,
-                                            scores, model=model)
+                                            scores, io.live, model=model)
                 trace.stage("pipeline.post", dev)
                 p = self._probs(logits, o_hw, v)
                 part = p if part is None else part + p
@@ -913,10 +944,7 @@ class Evaluator:
         for v, emb, mem in updates:
             st = sts[v]
             dev = st.prev_emb.device
-            for dst, src in zip(st.carried(),
-                                (emb, self._downscale(pred.to(dev), v, st),
-                                 *mem)):
-                dst.copy_(src)
+            st.carry(emb, self._downscale(pred.to(dev), v, st), mem)
             st.conf.copy_(self._downscale(conf.to(dev), v, st))
 
     def run_chunk(self, sts: List[_SeqState], io: ChunkIO, ori_hw,
@@ -932,7 +960,7 @@ class Evaluator:
             self.chunk_step(io, sts, ori_hw, join)
             return
         g = sts[0].graphs[(tuple(tuple(x.shape) for x in io.frames),
-                           tuple(ori_hw))]
+                           tuple(ori_hw), io.live)]
         if g.io is not io or join is not None:
             raise ValueError("a chunk graph replays its own buffers and "
                              "joins no label")
@@ -957,31 +985,34 @@ class Evaluator:
         their masks [K, H0, W0] uint8 (a multi-frame chunk's is a graph's
         output buffer: copy before the next step).  A step that replays a
         graph (``_graphed``) fills the static buffers of its graph (the
-        states' set of graphs lives on the first variant's state);
-        anything else runs on fresh ones."""
+        states' set of graphs, keyed by the frame shapes, the original
+        size and the live channels ``ctx["live"]``, lives on the first
+        variant's state); anything else runs on fresh ones."""
         trace.stage("pipeline.upload", self.device)
         items = [p for _, _, p in buf]
         fs = [f for f, _, _ in buf]
-        ori_hw = ctx["ori_hw"]
+        ori_hw, live = ctx["ori_hw"], ctx["live"]
         scores = self.init_scores(fs, max(st.score_rows for st in sts))
         ov, em = self._dev_vec(ctx["ov"]), self._dev_vec(ctx["em"])
         graphed = self._graphed(sts, len(buf), join)
         if not graphed:
             io = ChunkIO(self._upload_groups(items), scores, ov, em,
                          torch.empty((len(buf), *ori_hw), dtype=torch.uint8,
-                                     device=self.device))
+                                     device=self.device), live)
         else:
             shapes = tuple((len(buf), *x.shape) for x in items[0])
-            key = (shapes, tuple(ori_hw))
+            key = (shapes, tuple(ori_hw), live)
             if key not in sts[0].graphs:
                 sts[0].graphs[key] = _ChunkGraph(
-                    self._new_io(sts, shapes, ori_hw))
+                    self._new_io(sts, shapes, ori_hw, live))
             io = sts[0].graphs[key].io
             for g, x in enumerate(io.frames):
                 self._upload([it[g] for it in items], x)
             for dst, src in zip(io[1:4], (scores, ov, em)):
                 dst.copy_(src)
         self.run_chunk(sts, io, ori_hw, join)
+        if live is not None:
+            self.decoded_channels += len(buf) * len(sts) * live
         if graphed and len(buf) == 1:
             # a single frame waits in the D2H batcher past the next replay
             return io.preds.clone()
@@ -1032,6 +1063,7 @@ class Evaluator:
         d2h = D2HBatcher(saver, max(group, cfg.TEST_D2H_GROUP), timing)
         callback = frame_callback or (lambda f: None)
         states: List[_SeqState] = []
+        live: Optional[int] = None
 
         def ensure_flat(ov_np):
             with trace.span("pipeline.flat", timing, "flat"):
@@ -1091,20 +1123,23 @@ class Evaluator:
                                         f"id {lid} >= MODEL_MAX_OBJ_NUM={o}")
                                 label_all.append(lid)
                 frames = sample["frames"]
+                obj_num = int(meta["obj_num"])
                 if frame_idx == 0:
+                    live = self._family.live(self, seq, obj_num)
                     with trace.span("pipeline.start"):
                         states = self._family.start(self, frames, gt)
                     callback(0)
                     continue
-                ov_np = (np.arange(o) <= int(meta["obj_num"])).astype(
-                    np.float32)
+                if live is not None and obj_num >= live:
+                    live = o    # grown past the count: all channels on
+                ov_np = (np.arange(o) <= obj_num).astype(np.float32)
                 em_np = np.zeros(o, np.float32)
                 em_np[label_all] = 1.0
                 n_frames += 1
                 if gt is None:
                     chunker.push(frame_idx, meta["current_name"], frames,
                                  tuple(tuple(f.shape[:2]) for f in frames),
-                                 ov_np, em_np, ori_hw)
+                                 ov_np, em_np, ori_hw, {"live": live})
                     continue
                 # a join frame runs alone, after the frames buffered before
                 # it
@@ -1115,7 +1150,8 @@ class Evaluator:
                     trace.stage("pipeline.upload", self.device)
                     join = torch.from_numpy(gt.astype(np.int64)).to(
                         self.device)
-                    ctx = {"ov": ov_np, "em": em_np, "ori_hw": ori_hw}
+                    ctx = {"ov": ov_np, "em": em_np, "ori_hw": ori_hw,
+                           "live": live}
                     item = (frame_idx, meta["current_name"], frames)
                     preds = self._step(states, [item], ctx, join)
                     add_refs()
@@ -1154,16 +1190,30 @@ class Evaluator:
                 "total_fps": total_frames / max(total_time, 1e-6)}
 
 
+def live_channels(seq, obj_num: int, n_obj: int) -> int:
+    """The object channels AOC-Net decodes in a video, the background
+    included: ``1 + max(seq.obj_nums)`` where the sequence lists its
+    frames' object counts up front (``data.VOSTest``'s sequences), else
+    ``1 +`` frame 0's ``obj_num``."""
+    nums = getattr(seq, "obj_nums", None)
+    return min(n_obj, 1 + int(max(nums) if nums else obj_num))
+
+
 class _Family(NamedTuple):
     """A model family's part of the evaluator: its frame 0 (→ its
-    states), the preparation of a state before a step, and its chunk
-    step, each called with the evaluator first."""
+    states), the preparation of a state before a step, its chunk step,
+    and the object channels its steps decode in a video (``(evaluator,
+    sequence, frame 0's obj_num)`` → a count, or None: the family's own
+    step over all of them), each called with the evaluator first."""
     start: Callable
     prepare: Callable
     step: Callable
+    live: Callable
 
 
 _AOC = _Family(Evaluator._start_aoc, Evaluator._ensure_flat,
-               Evaluator._chunk_step_aoc)
+               Evaluator._chunk_step_aoc,
+               lambda ev, seq, n: live_channels(seq, n,
+                                                ev.cfg.MODEL_MAX_OBJ_NUM))
 _AOT = _Family(Evaluator._start_aot, lambda ev, st, ov_np: None,  # no bank
-               Evaluator._chunk_step_aot)
+               Evaluator._chunk_step_aot, lambda ev, seq, n: None)

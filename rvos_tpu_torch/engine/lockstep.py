@@ -53,6 +53,7 @@ logits, or the ensemble's mean probabilities).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, NamedTuple, Tuple
 
 import torch
@@ -216,7 +217,8 @@ def lockstep_masks(cfg: Config, make_model: Callable[[], AOCNet], seq,
         logits, memory = segment(*args, **kw)
         with torch.no_grad():
             ref_logits, _ = ref.segment_frame(*(_to(a, ref_device)
-                                                for a in args))
+                                                for a in args),
+                                              live=kw.get("live"))
         got = logits.float().to(ref_device)
         want = ref_logits.float()
         valid = want > -1e8
@@ -226,7 +228,8 @@ def lockstep_masks(cfg: Config, make_model: Callable[[], AOCNet], seq,
                      .item())
         unexplained += margin_gate(*ups)[2]
         if on_frame is not None:
-            on_frame(segment, args, ups)
+            on_frame(functools.partial(segment, live=kw.get("live")), args,
+                     ups)
         return logits, memory
 
     ev.model.segment_frame = mirrored

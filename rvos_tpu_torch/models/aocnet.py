@@ -120,6 +120,7 @@ class AOCNet(nn.Module):
         flat_obj: Optional[torch.Tensor] = None,   # [n_tiles] tile→object
         train: bool = False,
         cp_devices: Optional[Sequence[torch.device]] = None,
+        live: Optional[int] = None,
     ) -> Tuple[torch.Tensor, DecoderMemory]:
         """One frame's matching + calibration decode → logits [O, h, w].
 
@@ -217,18 +218,23 @@ class AOCNet(nn.Module):
         if c.MODEL_MATCHING_BACKGROUND:
             parts.append(foreground2background(local_fg, obj_valid))
             parts.append(foreground2background(global_fg, obj_valid))
-        maps = torch.cat(parts, dim=-1)                     # [h, w, O, n]
+        n = o if live is None else live
+        maps = torch.cat(parts, dim=-1)[:, :, :n]           # [h, w, n, m]
         maps = maps.permute(2, 3, 0, 1).to(current_emb.dtype)
 
-        # 6. prehead + decoder
+        # 6. prehead + decoder, on the live channels
         trace.stage("model.decode", dev)
         pre = self.dynamic_prehead(maps)
-        cur = current_emb.permute(2, 0, 1)[None].expand(o, -1, -1, -1)
+        cur = current_emb.permute(2, 0, 1)[None].expand(n, -1, -1, -1)
         x = torch.cat([cur, pre], dim=1)
-        head = heads.total_head.to(current_emb.dtype)
+        head = heads.total_head[:n].to(current_emb.dtype)
         logits, new_memory = self.dynamic_seghead(
-            x, head, memory, current_low.permute(2, 0, 1)[None],
-            obj_valid.to(current_emb.dtype))
+            x, head, DecoderMemory(memory.slots[:, :n], memory.valid),
+            current_low.permute(2, 0, 1)[None],
+            obj_valid[:n].to(current_emb.dtype))
+        if n < o:
+            logits = torch.cat([logits, logits.new_full(
+                (o - n, *logits.shape[1:]), -1e9)])
         logits = torch.where(obj_valid[:, None, None].bool(), logits,
                              torch.full_like(logits, -1e9))
         return logits, new_memory

@@ -149,7 +149,10 @@ class CalibrationDecoding(nn.Module):
     @staticmethod
     def _augment_background_logit(fg, bg, obj_valid):
         """Add the min of the valid foreground objects' relative-background
-        logits to the absolute-background channel."""
+        logits to the absolute-background channel (none: the background
+        alone is decoded, and nothing is added)."""
+        if fg.shape[0] == 1:
+            return fg
         valid = obj_valid[1:].bool()
         bg_masked = torch.where(valid[:, None, None], bg[1:],
                                 torch.full_like(bg[1:], float("inf")))

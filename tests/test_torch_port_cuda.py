@@ -11,19 +11,22 @@ Tolerance: max |kernel − plain| / max(|plain|, 1) ≤ 1e-4 in float32
 the same bf16 operands, float32 accumulation in another order).
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
 
 from rvos_tpu_torch import ops
 from rvos_tpu_torch.data import SyntheticEval
+from rvos_tpu_torch.device import tf32_off
 from rvos_tpu_torch.engine import Evaluator
 from rvos_tpu_torch.engine.lockstep import (WHOLE_VIDEO_LAYOUTS,
                                             gate_failures, lockstep_chunks,
                                             lockstep_masks, parity_config,
                                             parity_scores,
                                             whole_video_agreement)
-from rvos_tpu_torch.models import AOCNet
+from rvos_tpu_torch.models import AOCNet, DecoderMemory
 from rvos_tpu_torch.ops.matching import (compact_reference_bank_occupancy,
                                          compact_reference_bank_segmented)
 from rvos_tpu_torch.weights import init_random_
@@ -725,6 +728,110 @@ def test_bank_refresh_reaches_the_graph(dev):
     assert not torch.equal(want, old)
 
 
+def _cell_model():
+    """``resnet101_aocnet`` as the cell runs it (bf16, chunks of 5), with
+    random weights."""
+    from rvos_tpu_torch.configs import get_config
+    cfg = get_config("resnet101_aocnet")
+    return cfg, lambda: init_random_(AOCNet(cfg),
+                                     torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("live", [2, 3, 4, 6])
+def test_live_chunk_replay_equals_eager_at_cell_size(dev, live):
+    """A video of ``live - 1`` objects at the cell's 481×849 in bf16: the
+    chunk graph of that live count replays bit for bit what the chunk
+    step computes eagerly on the card from copies of the same state (no
+    pixel parts: one would take 2.4e-6 off a frame's agreement, whose
+    float32 mean of ones reads 1 - 6e-8)."""
+    cfg, make = _cell_model()
+    seq = SyntheticEval(size=(481, 849), n_seqs=1, n_frames=6,
+                        obj_num=live - 1)[0]
+    res = lockstep_chunks(cfg, make, seq, parity_scores, device="cuda",
+                          ref_device="cuda")
+    print(f"live {live}: replay vs eager max |dlogit| {res.max_dlogit:.3e}")
+    assert res.steps == [5] and res.replays == 1
+    assert res.max_dlogit == 0.0
+    assert len(res.agree) == 5 and min(res.agree) > 1 - 1e-6
+
+
+def test_chunk_graphs_are_keyed_by_live_count(dev):
+    """One chunk graph per live count: videos of 1, 2, 3 and 5 objects
+    capture four graphs, and a count that comes back replays its own;
+    ``decoded_channels`` counts each video's live channels a frame."""
+    cfg = _chunk_config("occupancy").replace(MODEL_MAX_OBJ_NUM=6)
+    ev = Evaluator(cfg, _make_model(cfg)(), device="cuda",
+                   kmeans_scores=parity_scores)
+    counts = [1, 2, 3, 5, 1]
+    for i, n in enumerate(counts):
+        ev.evaluate_sequence(SyntheticEval(size=(65, 65), n_seqs=1,
+                                           n_frames=7, obj_num=n)[0])
+        assert ev.captures == min(i + 1, 4)
+    assert ev.replays == 2 * len(counts)
+    (st,) = ev._last_states
+    assert sorted(k[-1] for k in st.graphs) == [2, 3, 4, 6]
+    assert ev.decoded_channels == 6 * sum(n + 1 for n in counts)
+
+
+def _as_float32(args):
+    """``segment_frame``'s arguments with every floating tensor (the
+    decoder memory's slots too) in float32."""
+    def f32(a):
+        if isinstance(a, DecoderMemory):
+            return DecoderMemory(*(f32(t) for t in a))
+        return a.float() if torch.is_tensor(a) and a.is_floating_point() else a
+    return [f32(a) for a in args]
+
+
+def test_live_decode_on_card_against_all_channels(dev):
+    """Every frame's decode of the live channels against the decode of
+    all 11 from the same inputs, at the cell's 481×849 (frame by frame,
+    eager, TF32 off).  In float32 the two agree within 1e-3 of the
+    logits' scale.  In bf16 they part by the rounding of the kernels
+    cuDNN and cuBLAS pick for another batch size, which stays within the
+    bf16 decode's own distance from the float32 one, in max |Δlogit| and
+    in the share of the stride-4 grid whose argmax parts.  Prints each
+    frame's numbers."""
+    cfg, make = _cell_model()
+    ev = Evaluator(cfg.replace(TEST_FRAME_CHUNK=1), make(), device="cuda")
+    f32 = copy.deepcopy(ev.model).float()
+    segment = ev.model.segment_frame
+    rows = []
+
+    def both(*args, **kw):
+        n = kw["live"]
+        logits, memory = segment(*args, **kw)
+        pad, _ = segment(*args, **dict(kw, live=None))
+        a32 = _as_float32(args)
+        live32, _ = f32.segment_frame(*a32, live=n)
+        pad32, _ = f32.segment_frame(*a32)
+        assert n < 11 and (logits[n:] == -1e9).all()
+        valid = args[7][:n].bool()
+        lv, pd, l32, p32 = (t[:n][valid].float()
+                            for t in (logits, pad, live32, pad32))
+        rows.append(dict(
+            bf16=(lv - pd).abs().max().item(),
+            bf16_vs_f32=(pd - p32).abs().max().item(),
+            parted=(lv.argmax(0) != pd.argmax(0)).float().mean().item(),
+            parted_vs_f32=(pd.argmax(0) != p32.argmax(0)).float().mean()
+            .item(),
+            f32=(l32 - p32).abs().max().item(),
+            f32_scale=p32.abs().max().item()))
+        return logits, memory
+
+    ev.model.segment_frame = both
+    with tf32_off():
+        ev.evaluate_sequence(SyntheticEval(size=(481, 849), n_seqs=1,
+                                           n_frames=6, obj_num=2)[0])
+    print("live vs all channels, 481x849:", rows)
+    assert len(rows) == 5
+    assert all(r["f32"] <= 1e-3 * r["f32_scale"] for r in rows)
+    assert (max(r["bf16"] for r in rows)
+            <= max(r["bf16_vs_f32"] for r in rows))
+    assert (sum(r["parted"] for r in rows)
+            <= sum(r["parted_vs_f32"] for r in rows))
+
+
 def test_failed_capture_raises(dev):
     """A chunk step that cannot be captured (here it synchronises the
     card) raises; nothing falls back to an eager run."""
@@ -733,9 +840,9 @@ def test_failed_capture_raises(dev):
     ev = Evaluator(cfg, model, device="cuda", kmeans_scores=parity_scores)
     segment = ev.model.segment_frame
 
-    def syncing(*args):
+    def syncing(*args, **kw):
         torch.cuda.synchronize()
-        return segment(*args)
+        return segment(*args, **kw)
 
     ev.model.segment_frame = syncing
     with pytest.raises(RuntimeError):
