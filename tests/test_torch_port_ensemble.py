@@ -1,134 +1,50 @@
 """The multi-scale + flip ensemble ("MF") of the port's evaluator against
-the JAX evaluator on the CPU, frame by frame, and the port's draws of the
-JAX package's k-means init scores (``ops.prng``).
+the JAX evaluator on the CPU, and the port's draws of the JAX package's
+k-means init scores (``ops.prng``).
 
-Setting (``MF_KW``, that of ``tests/test_eval_ensemble.py``):
-``tiny_test`` at 33×33 with radii (1, 2), 3 object channels, no size
-cap, ``TEST_FLIP`` and ``TEST_MULTISCALE=(1.0, 1.3)`` — four variants,
-33×33 and 49×49 frames (9×9 and 13×13 embeddings; the 0.8 of
-``tests/test_eval_ensemble.py`` snaps back to 33×33 here, and would hide
-a mix-up of scales) — ``MEM_EVERY=2`` and float32 matching
-(``tiny_test``'s own: the JAX package's XLA global matching computes
-float32 even in mixed mode, while the port follows its Pallas kernels).
+Setting: ``MF_KW`` of ``tests/torch_port_cases.py`` (scales 1.0 and 1.3
+with flip: four variants, 33×33 and 49×49 frames; float32 matching).
 Weights go across with ``from_jax_params``; neither side gets a
 ``kmeans_scores`` hook, so each draws its own default scores.  The JAX
 evaluator runs with ``TEST_ENSEMBLE_SHARD=False``: ``tests/conftest.py``
 makes 8 virtual CPU devices, on which it would otherwise shard the
-ensemble, a path the port leaves to its multi-GPU slice.  The helpers
-here serve ``test_torch_port_ensemble_*.py`` too; each file runs its own
-JAX references (JAX ensemble runs compile slowly on the CPU)."""
+ensemble, a path the port leaves to its multi-GPU slice
+(``test_torch_port_parallel_ensemble.py``).
 
-import functools
+The four JAX references run one after the other in this process: frame
+by frame (R1), the host post-processing path for the four variants and
+for one (R3, R4), and chunks of 2 with a join frame (R2).  The later
+ones reuse the programs the earlier ones compiled that they share (the
+weights' initialisation, the ensemble's one-frame step, the first
+frame's embeddings), through JAX's compilation cache."""
 
 import jax
 import numpy as np
 import pytest
 import torch
 
-from rvos_tpu.configs import tiny_test
-from rvos_tpu.data.datasets import SyntheticEval
-from rvos_tpu.engine.checkpoint import _flatten
-from rvos_tpu.engine.eval import Evaluator
-from rvos_tpu.models.aocnet import AOCNet, init_model
-
 import rvos_tpu_torch.configs as tconfigs
 from rvos_tpu_torch.data import SyntheticEval as TSyntheticEval
 from rvos_tpu_torch.engine import Evaluator as TEvaluator
 from rvos_tpu_torch.models import AOCNet as TAOCNet
 from rvos_tpu_torch.ops import prng
-from rvos_tpu_torch.weights import from_jax_params
+from rvos_tpu_torch.weights import init_random_
+from torch_port_cases import (MF_KW, SIZE, JoinObject2AtFrame3,
+                              assert_masks_agree, assert_states_equal,
+                              jax_init, run_both)
 from torch_port_threads import torch_threads  # noqa: F401 (autouse)
-
-SIZE = (33, 33)
-MF_KW = dict(DATA_RANDOMCROP=SIZE, MODEL_MULTI_LOCAL_DISTANCE=(1, 2),
-             MODEL_MAX_OBJ_NUM=3, TEST_MAX_SIZE=None, TEST_FLIP=True,
-             TEST_MULTISCALE=(1.0, 1.3), MEM_EVERY=2,
-             TEST_ENSEMBLE_SHARD=False)
-
-
-@functools.lru_cache(maxsize=1)
-def jax_variables():
-    cfg = tiny_test(**MF_KW)
-    return init_model(cfg, jax.random.PRNGKey(0), SIZE)[1]
-
-
-class JoinObject2AtFrame3:
-    """The 6-frame synthetic video with object 2 left out of frame 0's
-    annotation and first annotated on frame 3 (a YouTube-VOS style late
-    object, spliced in and added to every variant's bank there)."""
-
-    def __init__(self, seq):
-        self.seq = seq
-
-    def __len__(self):
-        return len(self.seq)
-
-    def __getitem__(self, idx):
-        s = self.seq[idx]
-        if idx == 0:
-            s["current_label"][s["current_label"] == 2] = 0
-        if idx == 3:
-            lab = np.zeros(SIZE, np.uint8)
-            lab[2:9, 20:31] = 2
-            s["current_label"] = lab
-        return s
-
-
-def run_both(n_frames=6, wrap=None, **kw):
-    """The synthetic video (``wrap``-ped) through the JAX evaluator and the
-    port's at ``MF_KW`` updated by ``kw`` → (JAX results, JAX states, port
-    output, port evaluator)."""
-    wrap = wrap or (lambda s: s)
-    cfg = tiny_test(**dict(MF_KW, **kw))
-    variables = jax_variables()
-    jev = Evaluator(cfg, AOCNet(cfg), variables)
-    want = jev.evaluate_sequence(wrap(SyntheticEval(
-        size=SIZE, n_seqs=1, n_frames=n_frames)[0]))["results"]
-
-    tcfg = tconfigs.tiny_test(**dict(MF_KW, **kw))
-    tmodel = TAOCNet(tcfg)
-    tmodel.load_state_dict(
-        from_jax_params(_flatten(jax.device_get(variables["params"]))),
-        strict=True)
-    ev = TEvaluator(tcfg, tmodel, device="cpu")
-    got = ev.evaluate_sequence(wrap(TSyntheticEval(
-        size=SIZE, n_seqs=1, n_frames=n_frames)[0]))
-    return want, jev._last_states, got, ev
-
-
-def assert_masks_agree(want, got, n_frames=6):
-    """Every frame's masks agree on ≥ 99.9 % of pixels."""
-    assert sorted(got) == sorted(want) == [f"{i:05d}.jpg"
-                                           for i in range(1, n_frames)]
-    assert any(len(np.unique(m)) > 1 for m in want.values())
-    for name, mask in want.items():
-        g = got[name]
-        assert g.shape == mask.shape == SIZE and g.dtype == np.uint8
-        agree = (g == mask).mean()
-        assert agree >= 0.999, (name, agree)
-
-
-def assert_states_equal(jstates, tstates):
-    """Each variant's state after the video: previous labels, bank slot
-    validity, and the labels of every valid bank slot, equal; an
-    ensemble's scales keep states of their own sizes."""
-    assert len(jstates) == len(tstates)
-    if len(tstates) > 1:
-        assert len({tuple(st.prev_lab.shape) for st in tstates}) > 1
-    for v, (js, ts) in enumerate(zip(jstates, tstates)):
-        valid = np.asarray(js.slot_valid)
-        np.testing.assert_array_equal(ts.slot_valid.numpy(), valid, str(v))
-        np.testing.assert_array_equal(ts.prev_lab.numpy(),
-                                      np.asarray(js.prev_lab), str(v))
-        lab = np.asarray(js.ref_lab)[valid > 0]
-        np.testing.assert_array_equal(ts.ref_lab.numpy()[valid > 0], lab,
-                                      str(v))
 
 
 @pytest.fixture(scope="module")
-def by_frame():
+def variables(tmp_path_factory):
+    """The JAX model's own weights at ``MF_KW``, made once a run."""
+    return jax_init(tmp_path_factory, "mf_init", MF_KW)
+
+
+@pytest.fixture(scope="module")
+def by_frame(variables):
     """R1: MF frame by frame (``TEST_FRAME_CHUNK=1``)."""
-    return run_both(TEST_FRAME_CHUNK=1)
+    return run_both(variables, TEST_FRAME_CHUNK=1)
 
 
 def test_ensemble_by_frame_matches_jax(by_frame):
@@ -157,6 +73,78 @@ def test_ensemble_states_match_jax(by_frame):
     want = resize_nchw(gt.flip(1), (9, 9), "nearest")
     assert torch.equal(twin.ref_lab[0], want)
     assert not torch.equal(want, base.ref_lab[0].flip(1))
+
+@pytest.fixture(scope="module", params=["ensemble", "single"])
+def host_path(request, variables):
+    """R3 (the four MF variants) and R4 (one scale, no flip) through the
+    host post-processing path (``TEST_FUSED_POSTPROCESS=False``): every
+    frame alone, each variant's step, the exist-masked probabilities
+    averaged, then the argmax, the join splice and the entropy gate."""
+    kw = {} if request.param == "ensemble" else dict(TEST_FLIP=False,
+                                                     TEST_MULTISCALE=(1.0,))
+    return request.param, run_both(variables, wrap=JoinObject2AtFrame3,
+                                   TEST_FUSED_POSTPROCESS=False, **kw)
+
+
+def test_host_path_matches_jax(host_path):
+    kind, (want, jstates, got, ev) = host_path
+    assert_masks_agree(want, got["results"])
+    assert ev.chunk_n == 1 and not ev.fused
+    assert len(ev._last_states) == (4 if kind == "ensemble" else 1)
+    assert_states_equal(jstates, ev._last_states)
+    assert (got["results"]["00003.jpg"][2:9, 20:31] == 2).all()
+
+
+@pytest.fixture(scope="module")
+def chunked_join(variables):
+    """R2: MF in chunks of 2 (``MEM_EVERY=2`` cuts them at frames 1-2 and
+    4; frame 3 is a join frame, frame 5 a ragged tail; the JAX
+    evaluator's ``_step_ensemble_chunk``), object 2 annotated from frame
+    3 on."""
+    return run_both(variables, wrap=JoinObject2AtFrame3, TEST_FRAME_CHUNK=2)
+
+
+def test_chunked_ensemble_matches_jax(chunked_join):
+    want, _, got, ev = chunked_join
+    assert_masks_agree(want, got["results"])
+    assert ev.chunk_n == 2 and ev.replays == ev.captures == 0
+
+
+def test_ensemble_join_frame_matches_jax(chunked_join):
+    """The join frame's label is spliced into the mask and every
+    variant's bank appends (frames 0, 2, 3 and 4: the join and the
+    MEM_EVERY frames), each bank equal to the JAX evaluator's."""
+    want, jstates, got, ev = chunked_join
+    new = np.zeros(want["00003.jpg"].shape, bool)
+    new[2:9, 20:31] = True
+    assert (got["results"]["00003.jpg"][new] == 2).all()
+    assert any((m == 2).any() for k, m in got["results"].items()
+               if k > "00003.jpg")
+    assert_states_equal(jstates, ev._last_states)
+    assert [st.version for st in ev._last_states] == [4] * 4
+
+
+def test_chunked_ensemble_matches_frame_by_frame_mixed():
+    """Mixed matching, scales 1.0 and 1.3 with flip (33×33 and 49×49
+    frames): chunks of 2 against frame by frame, under 0.5 % of the
+    video's pixels apart (the bar of the single-scale chunk test); the
+    two scales' states keep their own sizes."""
+    out = {}
+    for chunk in (1, 2):
+        cfg = tconfigs.tiny_test(**dict(MF_KW, TEST_MULTISCALE=(1.0, 1.3),
+                                        MATCHING_DTYPE="mixed",
+                                        TEST_FRAME_CHUNK=chunk))
+        ev = TEvaluator(cfg, init_random_(TAOCNet(cfg),
+                                          torch.Generator().manual_seed(3)),
+                        device="cpu")
+        out[chunk] = ev.evaluate_sequence(
+            TSyntheticEval(size=SIZE, n_seqs=1, n_frames=7)[0])["results"]
+        assert [tuple(st.prev_lab.shape) for st in ev._last_states] == [
+            (9, 9), (9, 9), (13, 13), (13, 13)]
+    a, b = out[1], out[2]
+    assert sorted(a) == sorted(b) and len(a) == 6
+    diff = sum(int((a[k] != b[k]).sum()) for k in a)
+    assert diff / sum(m.size for m in a.values()) < 0.005
 
 
 @pytest.mark.parametrize("frame,n_obj,n_rows", [

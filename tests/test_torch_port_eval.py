@@ -13,35 +13,26 @@ evaluators splice into the prediction and add to the bank.
 
 import json
 
-import jax
 import numpy as np
 import pytest
 import torch
 
 from rvos_tpu.configs import tiny_test
 from rvos_tpu.data.datasets import SyntheticEval
-from rvos_tpu.engine.checkpoint import _flatten
 from rvos_tpu.engine.eval import Evaluator
-from rvos_tpu.models.aocnet import init_model
 
 import rvos_tpu_torch.configs as tconfigs
 from rvos_tpu_torch.data import SyntheticEval as TSyntheticEval
 from rvos_tpu_torch.engine import Evaluator as TEvaluator
 from rvos_tpu_torch.models import AOCNet as TAOCNet
-from rvos_tpu_torch.weights import from_jax_params, init_random_
+from rvos_tpu_torch.weights import init_random_
+from torch_port_cases import (PIPE_KW, SIZE, jax_init, jax_kmeans_scores,
+                              port_model_from_jax)
 from torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
-SIZE = (33, 33)
 CFG_KW = dict(DATA_RANDOMCROP=SIZE, MODEL_MULTI_LOCAL_DISTANCE=(1, 2),
               MODEL_MAX_OBJ_NUM=4, TEST_MAX_SIZE=None, TEST_BANK_CAPACITY=3,
               MEM_EVERY=2, TEST_FRAME_CHUNK=1)
-
-
-def _jax_kmeans_scores(frame_idx, n_obj, n_rows):
-    key = jax.random.fold_in(jax.random.PRNGKey(42), np.int32(frame_idx))
-    return np.stack([np.asarray(jax.random.uniform(k, (n_rows,), minval=0.5,
-                                                   maxval=1.0))
-                     for k in jax.random.split(key, n_obj)])
 
 
 def _new_object_label():
@@ -68,10 +59,13 @@ class _JoinAtFrame3:
 
 
 @pytest.fixture(scope="module")
-def jax_model():
+def jax_model(tmp_path_factory):
+    """The JAX model and its own weights (made once a run: the pipeline's
+    file asks for the same)."""
+    from rvos_tpu.models import AOCNet
+
     cfg = tiny_test(**CFG_KW)
-    model, variables = init_model(cfg, jax.random.PRNGKey(0), SIZE)
-    return cfg, model, variables
+    return cfg, AOCNet(cfg), jax_init(tmp_path_factory, "pipe_init", PIPE_KW)
 
 
 @pytest.fixture(scope="module", params=["first_frame_gt", "mid_video_gt"])
@@ -82,12 +76,8 @@ def both(request, jax_model):
     want = Evaluator(cfg, model, variables).evaluate_sequence(seq)["results"]
 
     tcfg = tconfigs.tiny_test(**CFG_KW)
-    tmodel = TAOCNet(tcfg)
-    tmodel.load_state_dict(
-        from_jax_params(_flatten(jax.device_get(variables["params"]))),
-        strict=True)
-    ev = TEvaluator(tcfg, tmodel, device="cpu",
-                    kmeans_scores=_jax_kmeans_scores)
+    ev = TEvaluator(tcfg, port_model_from_jax(tcfg, variables), device="cpu",
+                    kmeans_scores=jax_kmeans_scores)
     tseq = wrap(TSyntheticEval(size=SIZE, n_seqs=1, n_frames=6)[0])
     got = ev.evaluate_sequence(tseq)
     return request.param, want, got
@@ -144,15 +134,12 @@ def test_evaluator_layouts_match_jax(layout, jax_model):
         "results"]
 
     tcfg = tconfigs.tiny_test(**kw)
-    tmodel = TAOCNet(tcfg)
-    tmodel.load_state_dict(
-        from_jax_params(_flatten(jax.device_get(variables["params"]))),
-        strict=True)
+    tmodel = port_model_from_jax(tcfg, variables)
     rows = []
 
     def scores(frame_idx, n_obj, n_rows):
         rows.append(n_rows)
-        return _jax_kmeans_scores(frame_idx, n_obj, n_rows)
+        return jax_kmeans_scores(frame_idx, n_obj, n_rows)
 
     ev = TEvaluator(tcfg, tmodel, device="cpu", kmeans_scores=scores)
     got = ev.evaluate_sequence(TSyntheticEval(size=SIZE, n_seqs=1,

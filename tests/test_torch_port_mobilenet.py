@@ -1,19 +1,14 @@
 """The MobileNetV2 backbone (``MODEL_BACKBONE="mobilenet"``) of the port
-against the JAX package's, on the CPU in float32.
-
-Weights: the JAX package's own initialisation carried to the port with
-``from_jax_params`` (loaded strictly), or the port's seeded random
-weights carried to JAX with ``convert_torch_statedict`` (the train step).
+against the JAX package's, on the CPU in float32, with the JAX package's
+own initialisation carried to the port by ``from_jax_params`` (loaded
+strictly).
 
 Tolerances.  Backbone features and ``extract_feature`` within 1e-5 of
 the largest |value| (measured: at most 2.4e-6); one frame's
 ``segment_frame`` logits, after the calibration decoder, within 1e-4
 (measured: 1.02e-5).  The streaming evaluator's masks on ≥ 99.9 % of
 every frame of the JAX evaluator's, as ``test_torch_port_eval.py`` holds
-the ResNet.  The train step as ``test_torch_port_train_step.py`` holds the
-ResNet's: per-frame losses within 1e-5 relative, every gradient tensor
-within 2e-2 of its largest |g| or three times the port's floor, and all
-gradients within 2e-2 relative L2.
+the ResNet.  The train step is ``test_torch_port_mobilenet_train.py``'s.
 """
 
 import jax
@@ -31,26 +26,16 @@ from rvos_tpu.models.aocnet import AOCNet, init_model
 import rvos_tpu_torch.configs as tconfigs
 from rvos_tpu_torch.data import SyntheticEval as TSyntheticEval
 from rvos_tpu_torch.engine import Evaluator as TEvaluator
-from rvos_tpu_torch.engine.train import Trainer
 from rvos_tpu_torch.models import AOCNet as TAOCNet
 from rvos_tpu_torch.models.deeplab import DeepLab
 from rvos_tpu_torch.models.mobilenet import MobileNetV2
 from rvos_tpu_torch.weights import from_jax_params
+from torch_port_cases import SIZE, jax_kmeans_scores, port_model_from_jax
 from torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
-import test_torch_port_train_step as step_test
-
-SIZE = (33, 33)
 CFG_KW = dict(DATA_RANDOMCROP=SIZE, MODEL_MULTI_LOCAL_DISTANCE=(1, 2),
               MODEL_MAX_OBJ_NUM=4, TEST_MAX_SIZE=None, TEST_BANK_CAPACITY=3,
               MEM_EVERY=2, TEST_FRAME_CHUNK=1, MODEL_BACKBONE="mobilenet")
-
-
-def _jax_kmeans_scores(frame_idx, n_obj, n_rows):
-    key = jax.random.fold_in(jax.random.PRNGKey(42), np.int32(frame_idx))
-    return np.stack([np.asarray(jax.random.uniform(k, (n_rows,), minval=0.5,
-                                                   maxval=1.0))
-                     for k in jax.random.split(key, n_obj)])
 
 
 @pytest.fixture(scope="module")
@@ -63,11 +48,7 @@ def jax_model():
 @pytest.fixture(scope="module")
 def port_model(jax_model):
     _, _, variables = jax_model
-    model = TAOCNet(tconfigs.tiny_test(**CFG_KW))
-    model.load_state_dict(
-        from_jax_params(_flatten(jax.device_get(variables["params"]))),
-        strict=True)
-    return model.eval()
+    return port_model_from_jax(tconfigs.tiny_test(**CFG_KW), variables).eval()
 
 
 def _rel(got, want):
@@ -174,12 +155,8 @@ def test_evaluator_masks_match_jax(jax_model):
     seq = SyntheticEval(size=SIZE, n_seqs=1, n_frames=6)[0]
     want = Evaluator(cfg, model, variables).evaluate_sequence(seq)["results"]
     tcfg = tconfigs.tiny_test(**CFG_KW)
-    tmodel = TAOCNet(tcfg)
-    tmodel.load_state_dict(
-        from_jax_params(_flatten(jax.device_get(variables["params"]))),
-        strict=True)
-    ev = TEvaluator(tcfg, tmodel, device="cpu",
-                    kmeans_scores=_jax_kmeans_scores)
+    ev = TEvaluator(tcfg, port_model_from_jax(tcfg, variables),
+                    device="cpu", kmeans_scores=jax_kmeans_scores)
     got = ev.evaluate_sequence(TSyntheticEval(size=SIZE, n_seqs=1,
                                               n_frames=6)[0])["results"]
     assert sorted(got) == sorted(want) == [f"{i:05d}.jpg"
@@ -188,32 +165,6 @@ def test_evaluator_masks_match_jax(jax_model):
     for name, mask in want.items():
         agree = (got[name] == mask).mean()
         assert agree >= 0.999, (name, agree)
-
-
-@pytest.fixture(scope="module")
-def against_jax():
-    return step_test.compare_with_jax(dict(step_test.KW,
-                                           MODEL_BACKBONE="mobilenet"))
-
-
-def test_train_step_losses_match_jax(against_jax):
-    r = against_jax
-    rel = np.abs(r["losses"] - r["jlosses"]) / np.abs(r["jlosses"])
-    assert rel.max() <= 1e-5, (r["losses"], r["jlosses"])
-    np.testing.assert_array_equal(r["ious"], r["jious"])
-
-
-def test_train_step_gradients_match_jax(against_jax):
-    from rvos_tpu_torch.engine.grad_check import gradient_failures
-
-    r = against_jax
-    assert any(n.startswith("feature_extracter.backbone.block_")
-               for n in r["grads"])
-    want = {n: r["jgrads"][n] for n in r["grads"]}
-    bad, summary = gradient_failures(r["grads"], want, r["floor"], 2e-2)
-    print(summary)
-    assert not bad, bad
-    assert summary["all_l2_rel"] <= 2e-2, summary
 
 
 def test_dilation_replaces_stride_after_output_stride_16():
@@ -232,10 +183,3 @@ def test_low_level_override_is_refused():
     with pytest.raises(ValueError, match="MODEL_LOW_LEVEL_INPLANES"):
         TAOCNet(tconfigs.tiny_test(MODEL_BACKBONE="mobilenet",
                                    MODEL_LOW_LEVEL_INPLANES=48))
-
-
-def test_trainer_builds_a_mobilenet():
-    tr = Trainer(tconfigs.tiny_test(**dict(step_test.KW,
-                                           MODEL_BACKBONE="mobilenet")),
-                 device="cpu", seed=0)
-    assert isinstance(tr.model.feature_extracter.backbone, MobileNetV2)

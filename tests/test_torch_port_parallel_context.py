@@ -31,7 +31,6 @@ from jax.sharding import Mesh
 from rvos_tpu.configs import tiny_test
 from rvos_tpu.engine.checkpoint import _flatten
 from rvos_tpu.models import AOCNet
-from rvos_tpu.models.aocnet import init_model
 from rvos_tpu.parallel import ambient_mesh_ctx, make_mesh
 from rvos_tpu.parallel.context import (global_matching_bank_sharded,
                                        global_matching_context_parallel)
@@ -47,6 +46,7 @@ from rvos_tpu_torch.parallel import (cp_mesh, global_matching_bank_sharded
                                      as t_context_parallel, make_mesh
                                      as t_make_mesh, resolved_cp_devices)
 from rvos_tpu_torch.weights import from_jax_params
+from torch_port_cases import MF_KW, jax_init
 from torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
@@ -101,20 +101,19 @@ def test_sharded_global_matching_equals_unsharded(n, mixed):
                            plain)
 
 
-def _jax_model():
-    base = tiny_test(MODEL_MULTI_LOCAL_DISTANCE=(1, 2), MODEL_MAX_OBJ_NUM=3,
-                     USE_PALLAS=False)
-    return base, *init_model(base, jax.random.PRNGKey(0), (33, 33))
-
-
-def test_segment_frame_context_parallel_matches_jax():
+def test_segment_frame_context_parallel_matches_jax(tmp_path_factory):
     """``full_forward`` (JAX) and the port's extraction + ``segment_frame``
     at ``MESH_MODEL_AXIS=4``: JAX under ``make_mesh(data=2, model=4)``,
     the port over ``[cpu] * 4``; then the degraded case, four model
     shards asked with two devices (no mesh in JAX, ``cp_mesh`` None in
     the port), which runs the unsharded path on both sides."""
     _jax_mesh()
-    base, model, variables = _jax_model()
+    base = tiny_test(MODEL_MULTI_LOCAL_DISTANCE=(1, 2), MODEL_MAX_OBJ_NUM=3,
+                     USE_PALLAS=False)
+    model = AOCNet(base)
+    # the JAX model's own weights at 33×33, made once a run: the weights of
+    # the ensemble's setting (the same initialisation program and arrays)
+    variables = jax_init(tmp_path_factory, "mf_init", MF_KW)
     rng = np.random.default_rng(1)
     imgs = jnp.asarray(rng.standard_normal((3, 33, 33, 3)).astype(np.float32))
     emb, low = model.apply(variables, imgs, method=AOCNet.extract_feature)

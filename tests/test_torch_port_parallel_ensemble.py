@@ -7,13 +7,12 @@ the first ``n`` (as ``tests/test_ensemble_shard.py`` does).  The port's
 evaluator gets ``devices=[cpu] * n``: the same partitions, replicas and
 pinned states, on one device.  ``n = 4`` gives a variant per device (a
 flip twin embeds its frame alone), ``n = 2`` a scale group per device.
-The setting is ``tests/test_torch_port_ensemble.py``'s (scales 1.0 and
-1.3 with flip: four variants, 33×33 and 49×49 frames; the 0.8 of
+The setting is ``MF_KW`` of ``tests/torch_port_cases.py`` (scales 1.0
+and 1.3 with flip: four variants, 33×33 and 49×49 frames; the 0.8 of
 ``tests/test_ensemble_shard.py`` snaps back to 33×33 and would hide a
-mix-up of scales), held by that file's gates: masks on ≥ 99.9 % of every
-frame, each variant's state equal."""
+mix-up of scales), held by the unsharded ensemble's gates: masks on
+≥ 99.9 % of every frame, each variant's state equal."""
 
-import functools
 import types
 
 import jax
@@ -23,7 +22,6 @@ import torch
 
 from rvos_tpu.configs import tiny_test
 from rvos_tpu.data.datasets import SyntheticEval
-from rvos_tpu.engine.checkpoint import _flatten
 from rvos_tpu.engine.eval import Evaluator
 
 from rvos_tpu_torch import configs as tconfigs
@@ -31,9 +29,10 @@ from rvos_tpu_torch.data import SyntheticEval as TSyntheticEval
 from rvos_tpu_torch.data.transforms import variant_list
 from rvos_tpu_torch.engine import Evaluator as TEvaluator
 from rvos_tpu_torch.models import AOCNet as TAOCNet
-from rvos_tpu_torch.weights import from_jax_params, init_random_
-from test_torch_port_ensemble import (MF_KW, SIZE, assert_masks_agree,
-                                      assert_states_equal, jax_variables)
+from rvos_tpu_torch.weights import init_random_
+from torch_port_cases import (MF_KW, SIZE, assert_masks_agree,
+                              assert_states_equal, jax_init,
+                              port_model_from_jax)
 from torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
@@ -63,29 +62,30 @@ def test_partitions_match_jax(scales, n_dev):
     assert ev.chunk_n == 1
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_sharded(n_dev):
-    cfg = tiny_test(**SHARD_KW)
-    from rvos_tpu.models.aocnet import AOCNet
-    ev = Evaluator(cfg, AOCNet(cfg), jax_variables())
-    assert ev.ens_devices is not None, "conftest provides 8 devices"
-    ev.ens_devices = ev.ens_devices[:n_dev]
-    out = ev.evaluate_sequence(SyntheticEval(size=SIZE, n_seqs=1,
-                                             n_frames=6)[0])
-    return out["results"], ev._last_states
+@pytest.fixture(scope="module")
+def variables(tmp_path_factory):
+    """The JAX model's own weights at ``MF_KW``, made once a run (the
+    unsharded ensemble's file asks for the same)."""
+    return jax_init(tmp_path_factory, "mf_init", MF_KW)
 
 
 @pytest.mark.parametrize("n_dev", [4, 2])
-def test_sharded_ensemble_matches_jax(n_dev):
+def test_sharded_ensemble_matches_jax(variables, n_dev):
     if len(jax.devices()) < n_dev:
         pytest.skip("needs conftest's virtual devices")
-    want, jstates = _jax_sharded(n_dev)
+    from rvos_tpu.models.aocnet import AOCNet
+
+    cfg = tiny_test(**SHARD_KW)
+    jev = Evaluator(cfg, AOCNet(cfg), variables)
+    assert jev.ens_devices is not None, "conftest provides 8 devices"
+    jev.ens_devices = jev.ens_devices[:n_dev]
+    want = jev.evaluate_sequence(SyntheticEval(size=SIZE, n_seqs=1,
+                                               n_frames=6)[0])["results"]
+    jstates = jev._last_states
     assert len({st.device for st in jstates}) == n_dev
-    cfg = tconfigs.tiny_test(**SHARD_KW)
-    model = TAOCNet(cfg)
-    model.load_state_dict(from_jax_params(_flatten(jax.device_get(
-        jax_variables()["params"]))), strict=True)
-    ev = TEvaluator(cfg, model, device="cpu", devices=[CPU] * n_dev)
+    tcfg = tconfigs.tiny_test(**SHARD_KW)
+    ev = TEvaluator(tcfg, port_model_from_jax(tcfg, variables), device="cpu",
+                    devices=[CPU] * n_dev)
     got = ev.evaluate_sequence(TSyntheticEval(size=SIZE, n_seqs=1,
                                               n_frames=6)[0])
     assert ev.ens_devices == [CPU] * n_dev and ev.chunk_n == 1

@@ -20,15 +20,14 @@ CPU.
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from rvos_tpu.configs import tiny_test as j_tiny
 from rvos_tpu.data import datasets as jds
 from rvos_tpu.data.loader import TrainBatcher as JBatcher
-from rvos_tpu.engine.checkpoint import _unflatten, convert_torch_statedict
 
 from rvos_tpu_torch.cli import train as tcli
 from rvos_tpu_torch.configs import tiny_test
@@ -37,11 +36,11 @@ from rvos_tpu_torch.data.loader import TrainBatcher
 from rvos_tpu_torch.engine.dp_check import data_parallel_steps
 from rvos_tpu_torch.engine.train import Trainer
 from rvos_tpu_torch.parallel.launch import launch
-from test_torch_port_train_data import _assert_same, _jax_transform
-from test_torch_port_train_step import KW, _batch
+from torch_port_cases import (TRAIN_KW, assert_same, jax_params,
+                              jax_transform, train_batch)
 from torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
-JKW = dict(KW, TRAIN_BATCH_SIZE=2, MESH_DATA_AXIS=2)
+JKW = dict(TRAIN_KW, TRAIN_BATCH_SIZE=2, MESH_DATA_AXIS=2)
 
 
 def test_two_ranks_losses_match_jax_trainer():
@@ -51,16 +50,18 @@ def test_two_ranks_losses_match_jax_trainer():
 
     cfg = tiny_test(**JKW)
     init = Trainer(cfg, device="cpu", seed=0).model.state_dict()
-    batches = [_batch(s, b=2) for s in range(2)]
+    batches = [train_batch(s, b=2) for s in range(2)]
     ranks = launch(data_parallel_steps, 2, "gloo", ["cpu"] * 2,
                    (cfg, init, batches, 0, 0), threads=1)
 
     jtr = JTrainer(j_tiny(**JKW))
     assert jtr.mesh.shape["data"] == 2
-    sd = {k: v.numpy() for k, v in init.items()}
-    params = _unflatten({k: jnp.asarray(v) for k, v in
-                         convert_torch_statedict(sd).items()})
-    jtr.state = jtr.state._replace(params=params)
+    # the state replicated on the mesh, as the step returns it: the second
+    # step then reuses the first one's program (fed the single-device
+    # state, the first step's program is compiled a second time; the
+    # losses are the same bit for bit either way)
+    jtr.state = jax.device_put(jtr.state._replace(params=jax_params(init)),
+                               NamedSharding(jtr.mesh, PartitionSpec()))
     rng = jax.random.PRNGKey(1234)
     for s, batch in enumerate(batches):
         rng, sub = jax.random.split(rng)
@@ -80,7 +81,7 @@ def test_process_slices_match_jax(count):
     tset = tds.SyntheticTrain(size=(33, 33), curr_len=2, length=17)
     cfg, jcfg = tiny_test(DATA_CURR_SEQ_LEN=2), j_tiny(DATA_CURR_SEQ_LEN=2)
     for index in range(count):
-        jb = JBatcher(jset, 4, _jax_transform(jcfg, True), seed=3,
+        jb = JBatcher(jset, 4, jax_transform(jcfg, True), seed=3,
                       num_workers=2, process_index=index,
                       process_count=count)
         tb = TrainBatcher(tset, 4, tcli.train_transform(cfg, True), seed=3,
@@ -91,9 +92,9 @@ def test_process_slices_match_jax(count):
             got = list(tb.epoch(epoch))
             assert len(got) == len(want) == 4
             assert got[0]["curr_img"].shape[:2] == (2, 4 // count)
-            _assert_same(got, want, f"process {index} epoch {epoch}")
-        _assert_same(list(tb.epoch(1, start=2)), want[2:],
-                     f"process {index}, epoch 1 from its third batch")
+            assert_same(got, want, f"process {index} epoch {epoch}")
+        assert_same(list(tb.epoch(1, start=2)), want[2:],
+                    f"process {index}, epoch 1 from its third batch")
 
 
 def test_indivisible_global_batch_raises():

@@ -3,7 +3,7 @@
 Two gloo processes spawned by the port's launcher
 (``parallel.launch.launch``: one
 torch thread each, an OS-picked rendezvous port, a join timeout of its
-own), at the tiny setting of ``tests/test_torch_port_train_step.py``
+own), at the step setting of ``tests/torch_port_cases.py``
 with the ASPP dropout on (0.2) and remat, a global batch of two items:
 
 * against the single process's per-item average
@@ -43,9 +43,9 @@ from rvos_tpu_torch.engine.train import Trainer, batch_to_device
 from rvos_tpu_torch.ops import prng
 from rvos_tpu_torch.parallel.distributed import process_batch_slice
 from rvos_tpu_torch.parallel.launch import launch
-from test_torch_port_train_step import KW, _batch
+from torch_port_cases import TRAIN_KW, train_batch
 
-DP_KW = dict(KW, MODEL_ASPP_DROPOUT=0.2, TRAIN_REMAT=True)
+DP_KW = dict(TRAIN_KW, MODEL_ASPP_DROPOUT=0.2, TRAIN_REMAT=True)
 STEPS = 2
 
 
@@ -67,7 +67,7 @@ def two_ranks():
     """Two ranks and the per-item reference over two global batches."""
     cfg = tiny_test(**DP_KW)
     init = Trainer(cfg, device="cpu", seed=3).model.state_dict()
-    batches = [_batch(s, b=2) for s in range(STEPS)]
+    batches = [train_batch(s, b=2) for s in range(STEPS)]
     ranks = run_ranks(data_parallel_steps, (cfg, init, batches, 0))
     n = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -163,7 +163,7 @@ def test_fit_on_two_ranks_writes_once_and_resumes(tmp_path):
 
 
 def test_batch_slices_and_indivisible_batches():
-    batch = _batch(0, b=4)
+    batch = train_batch(0, b=4)
     sl = batch_slice(batch, *process_batch_slice(4, 1, 2))
     assert sl["curr_img"].shape[:2] == (2, 2)
     np.testing.assert_array_equal(sl["ref_label"], batch["ref_label"][2:])
@@ -182,7 +182,7 @@ def test_dropout_masks_are_the_global_batch_slices(one_thread):
     cfg = tiny_test(**dict(DP_KW, MODEL_ASPP_DROPOUT=0.5))
     tr = Trainer(cfg, device="cpu", seed=1)
     key = prng.next_step_key(tr.run_key)[1]
-    batch = _batch(4, b=2)
+    batch = train_batch(4, b=2)
     cpu = torch.device("cpu")
     with torch.no_grad():
         items = [tr._step_fn.loss_fn(
@@ -206,7 +206,7 @@ def test_context_parallel_training_matches_unsharded(one_thread):
     losses are held to 1e-5 relative (the bar against JAX) and the
     gradients to ``engine.grad_check``'s (2e-2 of each tensor's scale or
     three times the unsharded run's ten-ulp floor; 2e-2 relative L2)."""
-    batch = batch_to_device(_batch(1, b=2), torch.device("cpu"))
+    batch = batch_to_device(train_batch(1, b=2), torch.device("cpu"))
 
     def run(tr, state=None):
         if state is not None:
@@ -219,9 +219,9 @@ def test_context_parallel_training_matches_unsharded(one_thread):
                                      else torch.zeros_like(p))
                                  for n, p in tr.model.named_parameters()}
 
-    plain = Trainer(tiny_test(**KW), device="cpu", seed=4)
-    sharded = Trainer(tiny_test(**dict(KW, MESH_MODEL_AXIS=2)), device="cpu",
-                      seed=4, devices=["cpu", "cpu"])
+    plain = Trainer(tiny_test(**TRAIN_KW), device="cpu", seed=4)
+    sharded = Trainer(tiny_test(**dict(TRAIN_KW, MESH_MODEL_AXIS=2)),
+                      device="cpu", seed=4, devices=["cpu", "cpu"])
     assert plain.cp_devices is None
     assert sharded.cp_devices == [torch.device("cpu")] * 2
     want_l, want = run(plain)

@@ -2,14 +2,34 @@
 the JAX package's, the batched mask copies and the mask writer, the
 prefetch loader, and the chunked evaluator against its own frame-by-frame
 run (``TEST_FRAME_CHUNK=3``, ``MEM_EVERY=3``) on a video whose objects
-change mid-chunk and which splices a mid-video label."""
+change mid-chunk and which splices a mid-video label (the
+``ChangingVideo`` of ``tests/torch_port_cases.py``).
 
+The default chunked path against the JAX evaluator's
+(``_step_fused_chunk``) on that video at ``TEST_FRAME_CHUNK=3``, once
+with the JAX draws handed to the port and once with the port's own
+default draws (``ops.prng``).  A third run hands the port the draws it
+made before it reproduced JAX's (a ``torch.Generator`` seeded with 42 +
+frame): the comparison must see them.
+
+    PYTHONPATH=. python tests/test_torch_port_pipeline.py [--size 129 129]
+        [--frames 12] [--config resnet101_aocnet]
+
+runs the JAX package's own chunked (``TEST_FRAME_CHUNK=5``) and
+frame-by-frame evaluators on the setting of
+``rvos_tpu_torch.cli.chunk_agreement`` in parity mode (float32 compute
+and matching), at the size given, and prints each frame's mask
+agreement between the two: whether JAX's own runs part as the port's
+do."""
+
+import argparse
 import json
 import os
 import sys
 import threading
 import time
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -25,6 +45,8 @@ from rvos_tpu_torch.engine.lockstep import (lockstep_chunks, parity_config,
                                             parity_scores)
 from rvos_tpu_torch.models import AOCNet
 from rvos_tpu_torch.weights import init_random_
+from torch_port_cases import (PIPE_KW, ChangingVideo, jax_init,
+                              jax_kmeans_scores, port_model_from_jax)
 from torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 
@@ -180,46 +202,11 @@ def test_prefetch_loader_raises_a_worker_error_in_order():
     assert got == [0, 1, 2, 3, 4]
 
 
-SIZE = (33, 33)
-_KW = dict(DATA_RANDOMCROP=SIZE, MODEL_MULTI_LOCAL_DISTANCE=(1, 2),
-           MODEL_MAX_OBJ_NUM=4, TEST_MAX_SIZE=None, TEST_BANK_CAPACITY=3,
-           MEM_EVERY=3)
-
-
-class _Changing:
-    """A 13-frame synthetic video, obj_num 3, with only object 1 annotated
-    on frame 0: object 3 is spliced in on frame 4 (a join frame), and
-    object 2 appears in ``current_label_all`` from frame 8 on, so
-    ``exist_mask`` changes inside the chunk of frames 7-9."""
-
-    def __init__(self):
-        self.seq = SyntheticEval(size=SIZE, n_seqs=1, n_frames=13)[0]
-        self.seq_name = "changing"
-
-    def __len__(self):
-        return len(self.seq)
-
-    def __getitem__(self, idx):
-        s = self.seq[idx]
-        s["meta"]["obj_num"] = 3
-        if idx == 0:
-            s["current_label"][s["current_label"] == 2] = 0
-        if idx == 4:
-            lab = np.zeros(SIZE, np.uint8)
-            lab[2:9, 20:31] = 3
-            s["current_label"] = lab
-        if idx >= 8:
-            lab = np.zeros(SIZE, np.uint8)
-            lab[20:28, 4:12] = 2
-            s["current_label_all"] = lab
-        return s
-
-
 @pytest.fixture(scope="module")
 def chunked_vs_frames():
     out, steps = {}, {}
     for chunk in (1, 3):
-        cfg = tiny_test(TEST_FRAME_CHUNK=chunk, **_KW)
+        cfg = tiny_test(TEST_FRAME_CHUNK=chunk, **PIPE_KW)
         ev = Evaluator(cfg, init_random_(AOCNet(cfg),
                                          torch.Generator().manual_seed(1)),
                        device="cpu")
@@ -231,7 +218,7 @@ def chunked_vs_frames():
             return _run(sts, io, ori_hw, join)
 
         ev.run_chunk = spy
-        out[chunk] = ev.evaluate_sequence(_Changing())
+        out[chunk] = ev.evaluate_sequence(ChangingVideo())
     return out, steps
 
 
@@ -272,11 +259,11 @@ def test_pipeline_knobs_keep_the_masks(knob, chunked_vs_frames):
     chunked run's masks exactly."""
     out, _ = chunked_vs_frames
     value = {"TEST_H2D_GROUP": 4, "TEST_WORKERS": 1, "TEST_D2H_GROUP": 1}[knob]
-    cfg = tiny_test(TEST_FRAME_CHUNK=3, **{**_KW, knob: value})
+    cfg = tiny_test(TEST_FRAME_CHUNK=3, **{**PIPE_KW, knob: value})
     ev = Evaluator(cfg, init_random_(AOCNet(cfg),
                                      torch.Generator().manual_seed(1)),
                    device="cpu")
-    got = ev.evaluate_sequence(_Changing())["results"]
+    got = ev.evaluate_sequence(ChangingVideo())["results"]
     for k, m in out[3]["results"].items():
         np.testing.assert_array_equal(got[k], m)
 
@@ -315,11 +302,108 @@ def test_host_postprocess_path_matches_fused_frames(chunked_vs_frames):
     post-processing path) gives the fused frame-by-frame run's masks
     exactly: one frame at a time, both are the same step."""
     out, _ = chunked_vs_frames
-    cfg = tiny_test(TEST_FUSED_POSTPROCESS=False, **_KW)
+    cfg = tiny_test(TEST_FUSED_POSTPROCESS=False, **PIPE_KW)
     ev = Evaluator(cfg, init_random_(AOCNet(cfg),
                                      torch.Generator().manual_seed(1)),
                    device="cpu")
-    got = ev.evaluate_sequence(_Changing())["results"]
+    got = ev.evaluate_sequence(ChangingVideo())["results"]
     assert ev.chunk_n == 1
     for k, m in out[1]["results"].items():
         np.testing.assert_array_equal(got[k], m)
+
+
+# ---- the chunked path against the JAX evaluator's --------------------
+
+CHUNK_KW = dict(PIPE_KW, TEST_FRAME_CHUNK=3)
+
+
+def _generator_scores(frame_idx, n_obj, n_rows):
+    g = torch.Generator().manual_seed(42 + frame_idx)
+    return 0.5 + 0.5 * torch.rand((n_obj, n_rows), generator=g)
+
+
+@pytest.fixture(scope="module")
+def variables(tmp_path_factory):
+    """The JAX model's own weights at ``PIPE_KW``, made once a run (the
+    evaluator's file asks for the same)."""
+    return jax_init(tmp_path_factory, "pipe_init", PIPE_KW)
+
+
+@pytest.fixture(scope="module")
+def reference(variables):
+    """The JAX evaluator's default chunked path (``_step_fused_chunk``) on
+    the ``ChangingVideo`` with ``TEST_FRAME_CHUNK=3``."""
+    from rvos_tpu.configs import tiny_test as j_tiny
+    from rvos_tpu.data.datasets import SyntheticEval as JSyntheticEval
+    from rvos_tpu.engine.eval import Evaluator as JEvaluator
+    from rvos_tpu.models import AOCNet as JAOCNet
+
+    cfg = j_tiny(**CHUNK_KW)
+    want = JEvaluator(cfg, JAOCNet(cfg), variables).evaluate_sequence(
+        ChangingVideo(JSyntheticEval))
+    return want["results"], variables
+
+
+def _port(variables, scores):
+    cfg = tiny_test(**CHUNK_KW)
+    ev = Evaluator(cfg, port_model_from_jax(cfg, variables), device="cpu",
+                   kmeans_scores=scores)
+    return ev.evaluate_sequence(ChangingVideo())["results"]
+
+
+def _agreement(want, got):
+    assert sorted(got) == sorted(want) == [f"{i:05d}.jpg"
+                                           for i in range(1, 13)]
+    return [float((got[k] == want[k]).mean()) for k in sorted(want)]
+
+
+@pytest.mark.parametrize("draws", ["jax_hook", "default"])
+def test_chunked_path_matches_jax(reference, draws):
+    want, variables = reference
+    agree = _agreement(want, _port(variables, jax_kmeans_scores
+                                   if draws == "jax_hook" else None))
+    assert min(agree) >= 0.999, agree
+
+
+def test_other_draws_part_from_jax(reference):
+    """The generator draws the port used to make by default: the masks
+    part from JAX's (0.445 of a frame by frame 11, measured when they
+    were replaced), so the comparison above holds the draws themselves."""
+    want, variables = reference
+    agree = _agreement(want, _port(variables, _generator_scores))
+    print("generator draws against JAX, per frame:",
+          [round(a, 4) for a in agree])
+    assert min(agree) < 0.9, agree
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--config", default="resnet101_aocnet")
+    p.add_argument("--size", type=int, nargs=2, default=(129, 129))
+    p.add_argument("--frames", type=int, default=12)
+    args = p.parse_args(argv)
+    size = tuple(args.size)
+    from rvos_tpu.configs import get_config
+    from rvos_tpu.data.datasets import SyntheticEval as JSyntheticEval
+    from rvos_tpu.engine.eval import Evaluator as JEvaluator
+    from rvos_tpu.models import AOCNet as JAOCNet
+    from rvos_tpu.models.aocnet import init_model
+
+    base = get_config(args.config, MATCHING_DTYPE="float32",
+                      EVAL_COMPUTE_DTYPE="float32")
+    _, variables = init_model(base, jax.random.PRNGKey(0), size)
+    out = {}
+    for chunk in (5, 1):
+        cfg = base.replace(TEST_FRAME_CHUNK=chunk)
+        out[chunk] = JEvaluator(cfg, JAOCNet(cfg), variables
+                                ).evaluate_sequence(JSyntheticEval(
+                                    size=size, n_seqs=1, n_frames=args.frames,
+                                    obj_num=3)[0])["results"]
+    agree = [round(float((out[5][k] == m).mean()), 4)
+             for k, m in sorted(out[1].items())]
+    print(f"JAX {args.config} parity {size[0]}x{size[1]}: mask agreement "
+          f"chunked vs frame by frame per frame {agree}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,43 +1,22 @@
 """bfloat16 training in the port against the JAX package, on the CPU:
 ``TRAIN_COMPUTE_DTYPE="bfloat16"`` (bf16 forward on bf16 copies of the
 float32 parameters) and ``MATCHING_DTYPE="bfloat16"`` (``--float16``:
-float32 tower, bf16 matching operands).
+float32 tower, bf16 matching operands), held stage by stage and piece by
+piece.  The whole step of each route against JAX's is in a file of its
+own (``test_torch_port_train_bf16_compute.py``, ``..._matching.py``):
+each is one cold JAX compile.
 
-The whole step, as ``test_torch_port_train_step.py`` runs it (one jitted
-JAX ``value_and_grad`` of ``make_train_step(...).loss_fn`` at 33×33, the
-port's seeded weights carried over, burn-in live, hard mining
-mid-anneal), compared with the port's same step and with the port's
-float32 step (``MATCHING_DTYPE="mixed"``) on the same weights.
-
-Measured (this file's fixtures, ``-s`` prints them):
-
-* ``--float16`` matching: losses 2.4e-5 and 3.7e-5 relative from
-  JAX's, all gradients 3.3e-2 relative L2; the port's float32 step is
-  1.2e-4 to 3.5e-4 and 0.11 from it.  Bars: losses 8e-5, L2 6e-2 —
-  each below the float32 step's gap (asserted: the power check).
-* bf16 compute: losses 8.5 % and 8.2 % from JAX's, all gradients 1.21
-  relative L2 — and the port's float32 step is as far (10 % and 18 %,
-  1.21).  A whole bf16 step cannot be held to another implementation's
-  with power: two bf16 implementations that round a float32 sum
-  differently part on one element in 1e4 of a layer's output, and within
-  a few layers every later rounding parts too, so after the tower they
-  differ as much as bf16 and float32 do (embeddings 1.85 % against
-  1.76 % relative L2), and the decoder's top-β masks, argmins and hard
-  mining carry that to the loss.  The whole-step bars (losses 0.35, L2
-  1.6) therefore only bound the step's size: a gradient of the right
-  norm and any direction passes them.  The power for bf16 compute is in
-  ``test_bf16_stage_matches_jax``: each stage of the route alone (the
-  route's own cast, ``engine.stage_check``) from the same bf16 inputs,
-  where JAX's and the port's stages part by 2.6 to over 10⁵ times less
-  than the port's float32 stage does, on the stages whose bf16 arithmetic is the
-  same on both sides; and in ``test_bf16_forward_runs_in_bf16`` and the
-  pieces' tests (local matching with exact ties, global matching, GCT,
-  the resizes, GN within 2⁻⁶ of JAX's folded form).
-* Each parameter tensor within ``rel_tol`` (2e-2, or the route's bar)
-  of its scale or three times the port's floor of its route
-  (``engine.grad_check``, weights scaled by 1 + 1e-6·N(0, 1)).  In bf16
-  most of that noise is rounded away by the cast, and the few weights
-  that move an ulp move the gradient as far as anything does.
+A whole bf16-compute step has no power against another implementation
+(two bf16 computations part as far as bf16 and float32 within a few
+layers; ``test_torch_port_train_bf16_compute.py``).  The power for bf16
+compute is in ``test_bf16_stage_matches_jax``: each stage of the route
+alone (the route's own cast, ``engine.stage_check``) from the same bf16
+inputs, where JAX's and the port's stages part by 2.6 to over 10⁵ times
+less than the port's float32 stage does, on the stages whose bf16
+arithmetic is the same on both sides; and in
+``test_bf16_forward_runs_in_bf16`` and the pieces' tests (local matching
+with exact ties, global matching, GCT, the resizes, GN within 2⁻⁶ of
+JAX's folded form).
 
 Port only: remat equals no remat, parameters, gradients and momentum
 stay float32, and a non-finite batch is skipped, under bf16.
@@ -49,82 +28,13 @@ import torch
 
 from torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
-import test_torch_port_train_step as step_test
 from rvos_tpu_torch.configs import tiny_test
-from rvos_tpu_torch.engine.grad_check import BF16_BARS as BARS
-from rvos_tpu_torch.engine.grad_check import gradient_failures
 from rvos_tpu_torch.engine.train import Trainer, batch_to_device
-from rvos_tpu_torch.ops import prng
-
-ROUTES = {
-    "compute": dict(TRAIN_COMPUTE_DTYPE="bfloat16"),
-    "matching": dict(MATCHING_DTYPE="bfloat16"),
-}
+from torch_port_cases import (BF16_ROUTES, STEP, TRAIN_KW, jax_params,
+                              step_key, train_batch)
 
 
-def _key():
-    return prng.next_step_key(prng.prng_key(prng.TRAIN_SEED))[1]
-
-
-@pytest.fixture(scope="module", params=sorted(ROUTES))
-def route(request):
-    kw = dict(step_test.KW, **ROUTES[request.param])
-    r = step_test.compare_with_jax(kw)
-    tr = Trainer(tiny_test(**step_test.KW), device="cpu", seed=0)
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        r["f32_losses"], _, r["f32_grads"] = step_test._port_grads(
-            tr, step_test._batch(), _key())
-    finally:
-        torch.set_num_threads(n)
-    return request.param, r
-
-
-def _gaps(r, grads, losses):
-    want = {n: r["jgrads"][n] for n in grads}
-    zero = dict.fromkeys(grads, 0.0)
-    l2 = gradient_failures(grads, want, zero, 1.0)[1]["all_l2_rel"]
-    rel = np.abs(losses - r["jlosses"]) / np.abs(r["jlosses"])
-    return rel, l2
-
-
-def test_step_losses_match_jax(route):
-    name, r = route
-    rel, _ = _gaps(r, r["grads"], r["losses"])
-    print(name, "losses", r["losses"], "jax", r["jlosses"], "rel", rel)
-    assert rel.max() <= BARS[name][0], rel
-
-
-def test_step_gradients_match_jax(route):
-    name, r = route
-    want = {n: r["jgrads"][n] for n in r["grads"]}
-    bad, summary = gradient_failures(r["grads"], want, r["floor"],
-                                     BARS[name][2])
-    print(name, summary)
-    assert not bad, bad
-    assert summary["all_l2_rel"] <= BARS[name][1], summary
-
-
-def test_power_against_the_float32_step(route):
-    """The float32 step's gap from JAX's bf16 step, beside the bars: for
-    ``--float16`` matching each bar is below it.  For bf16 compute no
-    whole-step bar can be (the docstring's saturation): this case only
-    records that the float32 step is as far from JAX as that, and the
-    power check of bf16 compute is ``test_bf16_stage_matches_jax``'s."""
-    name, r = route
-    f_rel, f_l2 = _gaps(r, r["f32_grads"], r["f32_losses"])
-    rel, l2 = _gaps(r, r["grads"], r["losses"])
-    print(name, "float32 step: losses", f_rel, "L2", f_l2,
-          "| bf16 step: losses", rel, "L2", l2)
-    if name == "matching":
-        assert BARS[name][0] < f_rel.min(), f_rel
-        assert BARS[name][1] < f_l2, f_l2
-    else:
-        assert f_rel.max() > 1e-2 and f_l2 > 0.5, (f_rel, f_l2)
-
-
-@pytest.mark.parametrize("name", sorted(ROUTES))
+@pytest.mark.parametrize("name", sorted(BF16_ROUTES))
 def test_bf16_forward_runs_in_bf16(name):
     """Every convolution, dense layer, group norm, GCT and frozen batch
     norm of the bf16 forward gets bf16 inputs and bf16 weights (the
@@ -132,7 +42,7 @@ def test_bf16_forward_runs_in_bf16(name):
     decoder memory it is handed are bf16, and the matching takes its route's
     operands; the parameters, their gradients and the optimizer's state
     stay float32."""
-    cfg = tiny_test(**dict(step_test.KW, **ROUTES[name]))
+    cfg = tiny_test(**dict(TRAIN_KW, **BF16_ROUTES[name]))
     tr = Trainer(cfg, device="cpu", seed=0)
     want = torch.bfloat16 if name == "compute" else torch.float32
     seen, wrong = set(), []
@@ -173,7 +83,7 @@ def test_bf16_forward_runs_in_bf16(name):
     train_matching.GlobalMatchingMin.apply = spy(real_g, "global")
     train_matching.LocalMatchingMin.apply = spy(real_l, "local")
     try:
-        m = tr.train_step(step_test._batch(), _key())
+        m = tr.train_step(train_batch(), step_key())
     finally:
         train_matching.GlobalMatchingMin.apply = real_g
         train_matching.LocalMatchingMin.apply = real_l
@@ -212,14 +122,14 @@ def test_bf16_remat_equals_no_remat(matching, one_thread):
     gradients equal, with dropout on."""
     grads = []
     for remat in (False, True):
-        cfg = tiny_test(**dict(step_test.KW, TRAIN_REMAT=remat,
+        cfg = tiny_test(**dict(TRAIN_KW, TRAIN_REMAT=remat,
                                MODEL_ASPP_DROPOUT=0.3,
                                TRAIN_COMPUTE_DTYPE="bfloat16",
                                MATCHING_DTYPE=matching))
         tr = Trainer(cfg, device="cpu", seed=1)
         loss, _ = tr._step_fn.loss_fn(
-            batch_to_device(step_test._batch(2), torch.device("cpu")),
-            step_test.STEP, _key(), [11, 12, 13])
+            batch_to_device(train_batch(2), torch.device("cpu")),
+            STEP, step_key(), [11, 12, 13])
         loss.backward()
         grads.append({n: p.grad.clone() for n, p in
                       tr.model.named_parameters() if p.grad is not None})
@@ -230,17 +140,17 @@ def test_bf16_remat_equals_no_remat(matching, one_thread):
 
 
 def test_bf16_nonfinite_batch_is_skipped():
-    cfg = tiny_test(**dict(step_test.KW, TRAIN_COMPUTE_DTYPE="bfloat16"))
+    cfg = tiny_test(**dict(TRAIN_KW, TRAIN_COMPUTE_DTYPE="bfloat16"))
     tr = Trainer(cfg, device="cpu", seed=0)
     before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
-    batch = step_test._batch()
+    batch = train_batch()
     batch["curr_img"][0, 0, 5, 5, 0] = np.nan
-    m = tr.train_step(batch, _key())
+    m = tr.train_step(batch, step_key())
     assert not np.isfinite(float(m["grad_norm"])) and m["applied"] is False
     assert tr.step == 1 and tr.optimizer.count == 0
     for n, p in tr.model.named_parameters():
         assert torch.equal(p, before[n]), n
-    m = tr.train_step(step_test._batch(1), _key())
+    m = tr.train_step(train_batch(1), step_key())
     assert m["applied"] is True and tr.optimizer.count == 1
 
 
@@ -295,7 +205,7 @@ def _jax_stage(cfg, params, name, xs, cot):
                         "dynamic_prehead")}
     if name == "matching":
         m = sc.matching_inputs(cfg, 0)
-        model = JAOCNet(j_tiny(**step_test.KW))
+        model = JAOCNet(j_tiny(**TRAIN_KW))
         h, w = sc.MATCH_HW
         o = sc.MATCH_O
         b16 = {k: jnp.asarray(m[k]).astype(jnp.bfloat16)
@@ -342,15 +252,9 @@ def _jax_stage(cfg, params, name, xs, cot):
 
 @pytest.fixture(scope="module")
 def stage_model():
-    import jax.numpy as jnp
-
-    from rvos_tpu.engine.checkpoint import _unflatten, convert_torch_statedict
-    cfg = tiny_test(**step_test.KW)
+    cfg = tiny_test(**TRAIN_KW)
     tr = Trainer(cfg, device="cpu", seed=0)
-    sd = {k: v.numpy() for k, v in tr.model.state_dict().items()}
-    params = _unflatten({k: jnp.asarray(v) for k, v in
-                         convert_torch_statedict(sd).items()})
-    return cfg, tr.model, params
+    return cfg, tr.model, jax_params(tr.model.state_dict())
 
 
 @pytest.mark.parametrize("name", sorted(STAGE_BARS))
@@ -630,12 +534,12 @@ def test_profile_by_stage_names_the_bf16_route(one_thread):
     from rvos_tpu_torch.models.layers import GCT
 
     real = (train_mod.cast_state, GCT.forward)
-    tr = Trainer(tiny_test(**dict(step_test.KW,
+    tr = Trainer(tiny_test(**dict(TRAIN_KW,
                                   TRAIN_COMPUTE_DTYPE="bfloat16")),
                  device="cpu", seed=0)
-    batch = batch_to_device(step_test._batch(), torch.device("cpu"))
+    batch = batch_to_device(train_batch(), torch.device("cpu"))
     with _spans(), profile(activities=[ProfilerActivity.CPU]) as prof:
-        loss, _ = tr._step_fn.loss_fn(batch, step_test.STEP, _key())
+        loss, _ = tr._step_fn.loss_fn(batch, STEP, step_key())
         loss.backward()
     assert (train_mod.cast_state, GCT.forward) == real
     stages = stage_breakdown(prof, device=False)

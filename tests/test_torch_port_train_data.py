@@ -25,26 +25,11 @@ from rvos_tpu_torch.data import datasets as tds
 from rvos_tpu_torch.data import transforms as ttr
 from rvos_tpu_torch.data.loader import TrainBatcher
 from rvos_tpu_torch.utils.image import PALETTE
+from torch_port_cases import assert_same, jax_transform
 from torch_port_threads import torch_threads  # noqa: F401 (autouse)
 
 HW = (57, 77)
 N_FRAMES = 9
-
-
-def _assert_same(a, b, path="sample"):
-    if isinstance(a, dict):
-        assert set(a) == set(b), path
-        for k in a:
-            _assert_same(a[k], b[k], f"{path}.{k}")
-    elif isinstance(a, (list, tuple)):
-        assert len(a) == len(b), path
-        for i, (x, y) in enumerate(zip(a, b)):
-            _assert_same(x, y, f"{path}[{i}]")
-    elif isinstance(a, np.ndarray):
-        assert a.dtype == b.dtype and a.shape == b.shape, path
-        np.testing.assert_array_equal(a, b, err_msg=path)
-    else:
-        assert a == b, path
 
 
 def _label(i):
@@ -114,7 +99,7 @@ def test_transforms_match_jax(seed, dtype):
         s = tr.random_hflip(s, 0.5, rng)
         s = dict(s, ref_img=tr.normalize(s["ref_img"]))
         outs.append((s, rng.integers(1 << 30)))
-    _assert_same(outs[1], outs[0])
+    assert_same(outs[1], outs[0])
 
 
 def test_synthetic_train_matches_jax():
@@ -122,7 +107,7 @@ def test_synthetic_train_matches_jax():
     a, b = jds.SyntheticTrain(**kw), tds.SyntheticTrain(**kw)
     assert len(a) == len(b)
     for i in range(len(a)):
-        _assert_same(b[i], a[i])
+        assert_same(b[i], a[i])
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32])
@@ -136,7 +121,7 @@ def test_davis_train_matches_jax(davis_root, dtype):
         a.set_epoch(epoch)
         b.set_epoch(epoch)
         for i in range(len(a)):
-            _assert_same(b[i], a[i], f"epoch {epoch} item {i}")
+            assert_same(b[i], a[i], f"epoch {epoch} item {i}")
 
 
 def test_ytbvos_train_matches_jax(ytb_root):
@@ -145,7 +130,7 @@ def test_ytbvos_train_matches_jax(ytb_root):
     b = tds.YTBVOSTrain(ytb_root, **kw)
     assert b.imglistdic == a.imglistdic
     for i in range(len(a)):
-        _assert_same(b[i], a[i], f"item {i}")
+        assert_same(b[i], a[i], f"item {i}")
 
 
 def test_check_index_reflects_like_jax():
@@ -175,7 +160,7 @@ def test_train_batches_match_jax(davis_root, synthetic):
                               curr_len=2, seed=11)
         tset = tds.DAVISTrain(davis_root, image_dtype=np.uint8,
                               repeat_time=3, curr_len=2, seed=11)
-    jtf = _jax_transform(jcfg, synthetic)
+    jtf = jax_transform(jcfg, synthetic)
     jb = JBatcher(jset, 2, jtf, seed=3, num_workers=2)
     tb = TrainBatcher(tset, 2, tcli.train_transform(cfg, synthetic), seed=3,
                       num_workers=2)
@@ -183,29 +168,10 @@ def test_train_batches_match_jax(davis_root, synthetic):
         want = list(jb.epoch(epoch))
         got = list(tb.epoch(epoch))
         assert len(got) == len(want) > 0
-        _assert_same(got, want, f"epoch {epoch}")
+        assert_same(got, want, f"epoch {epoch}")
         assert got[0]["curr_img"].shape[:2] == (2, 2)
     skipped = list(tb.epoch(1, start=1))
-    _assert_same(skipped, want[1:], "epoch 1 from its second batch")
-
-
-def _jax_transform(cfg, synthetic):
-    """The JAX train CLI's transform (a closure inside its ``main``)."""
-    def transform(sample, rng):
-        if synthetic:
-            out = dict(sample)
-            out["ref_img"] = jtr.normalize(sample["ref_img"])
-            out["prev_img"] = jtr.normalize(sample["prev_img"])
-            out["curr_img"] = [jtr.normalize(x) for x in sample["curr_img"]]
-            return out
-        sample = jtr.random_scale(sample, cfg.DATA_SHORT_EDGE_LEN,
-                                  cfg.DATA_MIN_SCALE_FACTOR,
-                                  cfg.DATA_MAX_SCALE_FACTOR, rng)
-        sample = jtr.balanced_random_crop(
-            sample, cfg.DATA_RANDOMCROP, rng, cfg.DATA_MAX_CROP_STEPS,
-            cfg.DATA_MAX_OBJ_NUM, cfg.DATA_MIN_OBJ_PIXEL_NUM)
-        return dict(jtr.random_hflip(sample, cfg.DATA_RANDOMFLIP, rng))
-    return transform
+    assert_same(skipped, want[1:], "epoch 1 from its second batch")
 
 
 def test_train_cli_args_match_jax():
